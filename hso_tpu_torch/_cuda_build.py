@@ -1,0 +1,153 @@
+"""Build and load the package's hand-written CUDA kernels.
+
+The sources under ``csrc/`` have a plain C interface and include no PyTorch
+header, so ``nvcc`` needs seconds, not minutes.  At first use every ``.cu``
+file is compiled for ``sm_90a`` into an object (one ``nvcc`` process per
+source, all started together), the objects are linked into ONE shared
+library under ``_build/`` and the library is loaded with ``ctypes``.  The
+library's name carries a hash of the sources, so an edited source rebuilds
+and an unchanged one does not.
+
+Nothing here runs at import time: modules that hold a kernel import this
+one lazily, inside the wrapper that launches, so the package imports on a
+machine with no compiler and no GPU.  A failed build raises; nothing falls
+back to another implementation.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+
+_PKG_DIR = os.path.dirname(os.path.abspath(__file__))
+CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(_PKG_DIR, "_build")
+
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-Xcompiler", "-fPIC"]
+
+_lib = None
+
+
+def _nvcc() -> str:
+    exe = shutil.which("nvcc")
+    if exe:
+        return exe
+    cand = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
+    if os.path.exists(cand):
+        return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built on this machine")
+
+
+def _sources() -> list[str]:
+    return sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cu"))
+
+
+def _source_hash() -> str:
+    h = hashlib.sha256()
+    for name in sorted(os.listdir(CSRC_DIR)):
+        if name.endswith((".cu", ".cuh")):
+            h.update(name.encode())
+            with open(os.path.join(CSRC_DIR, name), "rb") as fh:
+                h.update(fh.read())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def build(verbose: bool = False) -> str:
+    """Compile (if needed) and return the path of the shared library."""
+    tag = _source_hash()
+    so_path = os.path.join(BUILD_DIR, f"libhso_kernels_{tag}.so")
+    if os.path.exists(so_path):
+        return so_path
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    nvcc = _nvcc()
+    extra = ["-Xptxas", "-v"] if verbose else []
+    procs = []
+    for src in _sources():
+        obj = os.path.join(BUILD_DIR, f"{os.path.splitext(src)[0]}_{tag}.o")
+        cmd = [nvcc, *NVCC_FLAGS, *extra, "-I", CSRC_DIR, "-c",
+               os.path.join(CSRC_DIR, src), "-o", obj]
+        procs.append((src, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    objs, failed = [], []
+    for src, obj, p in procs:          # every process is waited for
+        out, _ = p.communicate()
+        if verbose and out:
+            print(out)
+        if p.returncode != 0:
+            failed.append(f"nvcc failed on {src}:\n{out}")
+        objs.append(obj)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    tmp = so_path + f".tmp{os.getpid()}"
+    link = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs],
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+    os.replace(tmp, so_path)
+    return so_path
+
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+
+
+class LevelTable(ctypes.Structure):
+    """Host-side table of pyramid level pointers and dims (``csrc/window.cu``)."""
+    MAX_LEVELS = 8
+    _fields_ = [("img", _P * 8), ("h", _I * 8), ("w", _I * 8)]
+
+
+class PatternTable(ctypes.Structure):
+    """Pattern offsets of one coarse level (``csrc/coarse.cu``)."""
+    MAX_POINTS = 32
+    _fields_ = [("dx", _I * 32), ("dy", _I * 32)]
+
+
+#: every pointer and the stream are declared c_void_p: without ``argtypes``
+#: ctypes passes a Python int as a 32-bit C int and cuts the pointer
+_SIGNATURES = {
+    "hso_extract_windows": [_P, _I, _I, _P, _P, _I, _I, _P, _P],
+    "hso_pack_level_windows": [ctypes.POINTER(LevelTable), _I, _P, _P, _P, _I, _I, _P, _P],
+    "hso_coarse_level_ic": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                            _F, _F, _F, _F, _I, _I, _I, _I,
+                            ctypes.POINTER(PatternTable), _I, _I, _I, _I, _I, _P, _P],
+    "hso_align_match": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P],
+    "hso_pose_lm": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P],
+}
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    global _lib
+    if _lib is None:
+        handle = ctypes.CDLL(build())
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(handle, name)
+            fn.argtypes = argtypes
+            fn.restype = _I
+        _lib = handle
+    return _lib
+
+
+def check(err: int, name: str) -> None:
+    """Raise on a non-zero ``cudaGetLastError()`` returned by a launch."""
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {err}")
+
+
+def check_tensor(t, dtype, shape: tuple, device, name: str) -> None:
+    """Raise unless ``t`` is what a kernel takes: on a CUDA device (the
+    given one), of the dtype and the shape, and contiguous (a kernel reads
+    raw pointers)."""
+    if device.type != "cuda":
+        raise ValueError(f"{name}: a CUDA kernel was handed tensors on {device}")
+    if t.dtype != dtype or tuple(t.shape) != tuple(shape) or t.device != device \
+            or not t.is_contiguous():
+        raise ValueError(f"{name}: expected contiguous {dtype} {tuple(shape)} on {device}, got "
+                         f"{t.dtype} {tuple(t.shape)} on {t.device}")

@@ -1,0 +1,187 @@
+"""Shared makers of test inputs (numpy only).
+
+Every function here takes a seed or deterministic arguments and returns plain
+numpy arrays, so the same inputs can be handed to this package and to the
+JAX package it was ported from.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from hso_tpu_torch.math import se3np
+
+PT_WIN = 24
+
+
+def window_anchor_cases(h: int, w: int, win: int, n_random: int, seed: int):
+    """Integer anchors for window extraction: the four image corners, then
+    ``n_random`` interior anchors.  Returns int32 (au, av)."""
+    rs = np.random.RandomState(seed)
+    au = np.concatenate([[0, w - win, 0, w - win], rs.randint(0, w - win, n_random)])
+    av = np.concatenate([[0, 0, h - win, h - win], rs.randint(0, h - win, n_random)])
+    return au.astype(np.int32), av.astype(np.int32)
+
+
+def level_center_cases(level_shapes, s: int, seed: int, margin: float = 5.0):
+    """Per-row pyramid levels and window centres in each row's own level
+    coordinates, some of them outside the image (the anchor clip has to
+    bring them back).  Returns (level int32, cu float32, cv float32)."""
+    rs = np.random.RandomState(seed)
+    level = rs.randint(0, len(level_shapes), s).astype(np.int32)
+    cu = np.empty(s, np.float32)
+    cv = np.empty(s, np.float32)
+    for k in range(s):
+        h, w = level_shapes[level[k]]
+        cu[k] = rs.uniform(-margin, w + margin)
+        cv[k] = rs.uniform(-margin, h + margin)
+    return level, cu, cv
+
+
+def pad_features(px, f, dist, n_max: int):
+    """Pad a feature list to ``n_max`` slots; empty slots carry dist = -1."""
+    n = len(px)
+    px_p = np.zeros((n_max, 2), np.float32)
+    f_p = np.zeros((n_max, 3), np.float32)
+    f_p[:, 2] = 1.0
+    d_p = np.full((n_max,), -1.0, np.float32)
+    px_p[:n], f_p[:n], d_p[:n] = px, f, dist
+    return px_p, f_p, d_p
+
+
+def align_problem(level_shapes, sample_patch, s: int = 64, seed: int = 2):
+    """Alignment candidates mixing corners/edgelets, border/far/invalid rows,
+    on mixed pyramid levels.  ``sample_patch(level, cu, cv) -> (10, 10)``
+    reads the bordered template around a true position at a level.
+
+    Row 0 sits near the image border, row 1 has its patch outside the image
+    (must fail), row 2 is a dead slot, row 3 starts hopelessly far away
+    (must not converge)."""
+    rs = np.random.RandomState(seed)
+    n_levels = len(level_shapes)
+    level = rs.randint(0, n_levels, s).astype(np.int32)
+    px_true = np.empty((s, 2), np.float32)
+    for k in range(s):
+        h, w = level_shapes[level[k]]
+        px_true[k] = [rs.uniform(16, w - 16), rs.uniform(16, h - 16)]
+    px_true[0] = [8.2, 8.7]
+    px_true[1] = [2.0, 2.0]
+    is_edge = rs.rand(s) < 0.3
+    theta = rs.uniform(0, 2 * np.pi, s).astype(np.float32)
+    direction = np.stack([np.cos(theta), np.sin(theta)], -1).astype(np.float32)
+    valid = np.ones(s, bool)
+    valid[2] = False
+    offset = rs.uniform(-1.2, 1.2, (s, 2)).astype(np.float32)
+    offset[3] = [30.0, -28.0]
+    px_init = (px_true + offset).astype(np.float32)
+    ref_border = np.stack([sample_patch(int(level[k]), float(px_true[k, 0]),
+                                        float(px_true[k, 1])) for k in range(s)])
+    return dict(level=level, is_edge=is_edge, direction=direction, valid=valid,
+                px_init=px_init, px_true=px_true, ref_border=ref_border.astype(np.float32))
+
+
+def bilinear_patch(img: np.ndarray, cu: float, cv: float, size: int = 10) -> np.ndarray:
+    """(size, size) bilinear patch of ``img`` whose grid point (0, 0) sits at
+    (cu - size/2, cv - size/2); reads outside the image are 0."""
+    h, w = img.shape
+    g = np.arange(size, dtype=np.float64) - size / 2
+    xs = cu + g[None, :] + np.zeros((size, 1))
+    ys = cv + g[:, None] + np.zeros((1, size))
+    x0 = np.floor(xs).astype(np.int64)
+    y0 = np.floor(ys).astype(np.int64)
+    fx, fy = xs - x0, ys - y0
+
+    def tap(xi, yi):
+        inside = (xi >= 0) & (xi < w) & (yi >= 0) & (yi < h)
+        return np.where(inside, img[np.clip(yi, 0, h - 1), np.clip(xi, 0, w - 1)], 0.0)
+
+    out = (tap(x0, y0) * (1 - fx) * (1 - fy) + tap(x0 + 1, y0) * fx * (1 - fy)
+           + tap(x0, y0 + 1) * (1 - fx) * fy + tap(x0 + 1, y0 + 1) * fx * fy)
+    return out.astype(np.float32)
+
+
+def pose_problem(n: int = 256, n_live: int = 180, seed: int = 11):
+    """A motion-only pose problem: ``n`` slots, the first ``n_live`` valid,
+    noisy bearings of points seen from ``T_true``, one gross outlier at slot
+    ``n_live - 3``.  The initial pose is the identity."""
+    rs = np.random.RandomState(seed)
+    p_world = np.stack([rs.uniform(-2, 2, n), rs.uniform(-1.5, 1.5, n),
+                        rs.uniform(1.5, 4.0, n)], -1).astype(np.float32)
+    T_true = se3np.exp(np.array([0.05, -0.02, 0.03, 0.01, 0.02, -0.015]))
+    p_c = (T_true[:3, :3] @ p_world.T).T + T_true[:3, 3]
+    f_obs = p_c / np.linalg.norm(p_c, axis=-1, keepdims=True)
+    f_obs += rs.normal(0, 5e-4, f_obs.shape)
+    f_obs[n_live - 3, 0] += 0.1
+    f_obs /= np.linalg.norm(f_obs, axis=-1, keepdims=True)
+    level = rs.randint(0, 3, n).astype(np.int32)
+    theta = rs.uniform(0, 2 * np.pi, n)
+    grad = np.stack([np.cos(theta), np.sin(theta)], -1).astype(np.float32)
+    return dict(T0=se3np.identity().astype(np.float32), T_true=T_true, p_world=p_world,
+                f_obs=f_obs.astype(np.float32), level=level, grad=grad,
+                is_edge=rs.rand(n) < 0.3, is_temp=rs.rand(n) < 0.1,
+                valid=np.arange(n) < n_live)
+
+
+def track_problem(cam, scene, T_cur, p_max: int = 512, grid_step: int = 12,
+                  border: int = 20, seed: int = 5):
+    """A two-view tracking problem on a synthetic scene with ground-truth
+    depths: the previous frame is a keyframe at the identity, the current
+    frame is rendered at ``T_cur``.
+
+    Returns a dict of numpy arrays: the two images, a hand-built point table
+    (``pos_w``, ``light``, ``species``, and the per-point columns of
+    ``pt_pack`` after the window: ``cols`` (P, 12)), ``kf_poses``,
+    ``kf_exposure``, ``ring_T``, ``ring_exp`` and the previous frame's
+    observation table.  The caller extracts each point's 24×24 window at
+    ``px`` on level 0 and prepends it to ``cols`` to form ``pt_pack``."""
+    rs = np.random.RandomState(seed)
+    img_prev = scene.render(se3np.identity())
+    img_cur = scene.render(T_cur)
+    px, f, dist = scene.grid_features(step=grid_step, border=border)
+    n = min(len(px), p_max)
+    px, f, dist = px[:n].astype(np.float32), f[:n].astype(np.float32), dist[:n]
+
+    # gradient direction at each feature (central differences of the image)
+    im = img_prev.astype(np.float32)
+    xi = px[:, 0].astype(np.int64)
+    yi = px[:, 1].astype(np.int64)
+    g = np.stack([im[yi, xi + 1] - im[yi, xi - 1], im[yi + 1, xi] - im[yi - 1, xi]], -1)
+    gnorm = np.linalg.norm(g, axis=-1, keepdims=True)
+    grad = np.where(gnorm > 1e-6, g / np.maximum(gnorm, 1e-6), np.array([[1.0, 0.0]]))
+
+    species = np.zeros(p_max, np.int32)
+    species[:n] = rs.choice([0, 1, 2], size=n, p=[0.6, 0.25, 0.15])
+    pt_type = np.zeros(p_max, np.int32)
+    pt_type[:n] = rs.choice([1, 2, 3, 4], size=n, p=[0.1, 0.3, 0.3, 0.3])
+    pt_valid = np.arange(p_max) < n
+
+    pos_w = np.zeros((p_max, 3), np.float32)
+    pos_w[:n] = f * dist[:, None]
+    anchor = np.zeros((p_max, 2), np.int32)
+    anchor[:n, 0] = np.clip(np.floor(px[:, 0]).astype(np.int64) - PT_WIN // 2, 0,
+                            cam.width - PT_WIN)
+    anchor[:n, 1] = np.clip(np.floor(px[:, 1]).astype(np.int64) - PT_WIN // 2, 0,
+                            cam.height - PT_WIN)
+    cols = np.zeros((p_max, 12), np.float32)
+    cols[:n, 0:2] = px
+    cols[:, 2:5] = [0.0, 0.0, 1.0]
+    cols[:n, 2:5] = f
+    cols[:, 5:7] = anchor
+    cols[:n, 8:10] = grad
+    cols[:, 10] = species
+    px_full = np.zeros((p_max, 2), np.float32)
+    px_full[:n] = px
+
+    n_kf = 4
+    kf_poses = np.tile(se3np.identity()[None], (n_kf, 1, 1)).astype(np.float32)
+    # previous frame's observations: every third point, the rest empty slots
+    obs_ids = np.arange(0, n, 3)
+    n_obs = len(obs_ids)
+    return dict(
+        img_prev=img_prev, img_cur=img_cur, n_points=n, px=px_full, cols=cols, anchor=anchor,
+        pos_w=pos_w, species=species, light=(pt_type + 8 * pt_valid).astype(np.int32),
+        kf_poses=kf_poses, kf_exposure=np.ones(n_kf, np.float32),
+        ring_T=np.tile(se3np.identity()[None], (8, 1, 1)).astype(np.float32),
+        ring_exp=np.ones(8, np.float32),
+        obs_px=px[obs_ids], obs_f=f[obs_ids], obs_pid=obs_ids.astype(np.int32), n_obs=n_obs,
+    )

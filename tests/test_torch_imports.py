@@ -1,0 +1,80 @@
+"""The port imports torch, never JAX and nothing of the JAX package; its
+kernel modules import without a compiler or a GPU (the build is at first
+launch)."""
+
+import os
+import pkgutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import hso_tpu_torch
+
+torch.set_num_threads(1)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+MODULES = sorted(m.name for m in pkgutil.walk_packages(hso_tpu_torch.__path__, "hso_tpu_torch."))
+
+
+def test_module_list_is_complete():
+    for name in ("hso_tpu_torch._cuda_build", "hso_tpu_torch.ops.window_cuda",
+                 "hso_tpu_torch.ops.align_cuda", "hso_tpu_torch.track.coarse_cuda",
+                 "hso_tpu_torch.track.pose_cuda", "hso_tpu_torch.pipeline.fused_step",
+                 "hso_tpu_torch.utils.checkpoint", "hso_tpu_torch.testing"):
+        assert name in MODULES
+
+
+def test_fresh_interpreter_imports_everything_without_jax():
+    code = (
+        "import importlib, sys\n"
+        f"mods = {['hso_tpu_torch'] + MODULES!r}\n"
+        "for m in mods:\n"
+        "    importlib.import_module(m)\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "       or m == 'hso_tpu' or m.startswith('hso_tpu.')]\n"
+        "assert not bad, bad\n"
+        "assert 'triton' not in sys.modules\n"
+        "from hso_tpu_torch import _cuda_build\n"
+        "assert _cuda_build._lib is None      # nothing was built or loaded\n"
+        "print('ok', len(mods))\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert res.stdout.strip().startswith("ok")
+
+
+def test_sources_name_neither_jax_nor_the_jax_package():
+    import re
+
+    pat = re.compile(r"^\s*(import|from)\s+(jax|hso_tpu)(\.|\s|$)", re.M)
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _, names in os.walk(os.path.join(ROOT, "hso_tpu_torch")):
+        files += [os.path.join(d, n) for n in names if n.endswith(".py")]
+    assert len(files) > 25
+    for path in files:
+        with open(path) as fh:
+            assert not pat.search(fh.read()), path
+
+
+def test_kernel_sources_are_in_the_package():
+    from hso_tpu_torch import _cuda_build
+
+    assert _cuda_build._sources() == ["align.cu", "coarse.cu", "pose.cu", "window.cu"]
+    assert all(len(sig) >= 9 for sig in _cuda_build._SIGNATURES.values())
+    h1 = _cuda_build._source_hash()
+    assert h1 == _cuda_build._source_hash() and len(h1) == 16
+
+
+def test_build_without_compiler_raises():
+    """No nvcc here: asking for the library raises, nothing falls back."""
+    import shutil
+
+    from hso_tpu_torch import _cuda_build
+
+    if shutil.which("nvcc") or os.path.exists("/usr/local/cuda/bin/nvcc"):
+        pytest.skip("a CUDA compiler is installed: the build would succeed")
+    with pytest.raises(RuntimeError):
+        _cuda_build.build()
