@@ -1,17 +1,22 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one GPU: ``python3 chip_smoke.py``.
 
-Drives the port's main path — the tracking half of the per-frame step,
-``hso_tpu_torch.pipeline.fused_step.make_track_step`` — at full width
-(pinhole 640×480, default ``Config``, 336 grid cells, 4096 point rows with
-24×24 windows, state resumed from ``artifacts/bench_boot.npz``) over 24
-rendered frames, after building every CUDA kernel from the sources in
-``hso_tpu_torch/csrc`` and holding each against its plain PyTorch version
-on the card.  Needs one CUDA device; exits non-zero without one.  Imports
-nothing of JAX.
+Drives the port's main path — the whole per-frame step,
+``hso_tpu_torch.pipeline.fused_step.make_frame_step`` (tracking, matching,
+pose refinement and the depth-filter seed sweep) — at full width (pinhole
+640×480, default ``Config``, 336 grid cells, 4096 point rows with 24×24
+windows, 1024 seed slots, state and seed table resumed from
+``artifacts/bench_boot.npz``) over 24 rendered frames, after building every
+CUDA kernel from the sources in ``hso_tpu_torch/csrc`` and holding each
+against its plain PyTorch version on the card.  The tracking half alone
+(``make_track_step``) is driven over the same frames, and the seed table's
+life (``init_seeds``, sweeps, ``harvest_and_prune``) is run on the card and
+on the CPU from the same state.  Needs one CUDA device; exits non-zero
+without one.  Imports nothing of JAX.
 
 Phases (one JSON line each): ``device``, ``build``, ``kernels`` (one line per
-kernel), ``track``; then the ``{"kernels": [...]}`` summary and, last, the
+kernel and shape), ``track``, ``frame``, ``seeds``; then the
+``{"kernels": [...]}`` summary, the card line and, last, the
 ``{"ok": true, "device": {...}}`` line.  Any failed check raises.
 """
 
@@ -36,11 +41,13 @@ from hso_tpu_torch.cameras import PinholeCamera  # noqa: E402
 from hso_tpu_torch.config import Config  # noqa: E402
 from hso_tpu_torch.image.pyramid import build_frame_pyramids  # noqa: E402
 from hso_tpu_torch.math import se3np  # noqa: E402
-from hso_tpu_torch.ops import align_cuda, window_cuda  # noqa: E402
+from hso_tpu_torch.mapping import depth_filter  # noqa: E402
+from hso_tpu_torch import testing  # noqa: E402
+from hso_tpu_torch.ops import align_cuda, epipolar, epipolar_cuda, window_cuda  # noqa: E402
 from hso_tpu_torch.ops.gatherless import clip_anchor  # noqa: E402
-from hso_tpu_torch.pipeline.fused_step import make_track_step  # noqa: E402
+from hso_tpu_torch.pipeline.fused_step import make_frame_step, make_track_step  # noqa: E402
 from hso_tpu_torch.track import coarse_cuda, pose_cuda  # noqa: E402
-from hso_tpu_torch.utils.checkpoint import track_state_from_checkpoint  # noqa: E402
+from hso_tpu_torch.utils import checkpoint  # noqa: E402
 from hso_tpu_torch.utils.evaluate import ate  # noqa: E402
 from hso_tpu_torch.utils.synthetic import BoxScene  # noqa: E402
 
@@ -60,6 +67,7 @@ COUNTERS = {
     "coarse_level_ic": coarse_cuda.LAUNCHES,
     "align_match": align_cuda.LAUNCHES,
     "pose_lm": pose_cuda.LAUNCHES,
+    "zmncc_line_scores": epipolar_cuda.LAUNCHES,
 }
 KERNEL_META = {
     "extract_windows": ("hso_tpu_torch/csrc/window.cu", "hso_tpu/ops/window_pallas.py:119"),
@@ -67,7 +75,14 @@ KERNEL_META = {
     "coarse_level_ic": ("hso_tpu_torch/csrc/coarse.cu", "hso_tpu/track/coarse_pallas.py:300"),
     "align_match": ("hso_tpu_torch/csrc/align.cu", "hso_tpu/ops/align_pallas.py:228"),
     "pose_lm": ("hso_tpu_torch/csrc/pose.cu", "hso_tpu/track/pose_pallas.py:233"),
+    "zmncc_line_scores": ("hso_tpu_torch/csrc/epipolar.cu",
+                          "hso_tpu/ops/epipolar_pallas.py:157"),
 }
+#: kernels of the tracking half (the older path), and of the whole step
+TRACK_KERNELS = ("extract_windows", "pack_level_windows", "coarse_level_ic", "align_match",
+                 "pose_lm")
+FRAME_KERNELS = TRACK_KERNELS + ("zmncc_line_scores",)
+SEED_WIN = depth_filter.HOST_WIN
 
 
 def emit(phase: str, **kw) -> None:
@@ -108,10 +123,12 @@ def grid_of(cam, cfg) -> tuple:
     return (cell, -(-cam.height // cell), -(-cam.width // cell))
 
 
-def build_step(cam, cfg, device):
+def build_step(cam, cfg, device, whole: bool = False):
+    """The tracking step, or with ``whole`` the whole per-frame step."""
     grid = grid_of(cam, cfg)
     n_obs_pad = max(cfg.n_fts_max, grid[1] * grid[2])
-    step = make_track_step(
+    make = make_frame_step if whole else make_track_step
+    step = make(
         cam, grid, cfg.klt_max_level, cfg.klt_min_level, cfg.coarse_n_iter,
         cfg.coarse_pattern_offset, cfg.poseoptim_thresh, n_obs_pad=n_obs_pad,
         edgelet_cos_angle=cfg.edgelet_angle, align_max_iter=cfg.align_max_iter,
@@ -168,6 +185,21 @@ class Recorder:
         return self.fn(*args, **kwargs)
 
 
+class Tally:
+    """Wraps a dispatcher at a call site: counts its calls by window edge,
+    then calls it."""
+
+    def __init__(self, fn, win_of):
+        self.fn = fn
+        self.win_of = win_of
+        self.counts = {}
+
+    def __call__(self, *args, **kwargs):
+        win = int(self.win_of(args, kwargs))
+        self.counts[win] = self.counts.get(win, 0) + 1
+        return self.fn(*args, **kwargs)
+
+
 @contextlib.contextmanager
 def patched(pairs):
     """Temporarily set module attributes: ``pairs`` is [(module, name, value)]."""
@@ -184,34 +216,80 @@ def patched(pairs):
 def plain_kernels():
     """Route every kernel call site to the kernel's plain version, by name
     (used for the on-card reference run; the dispatchers never do this)."""
-    from hso_tpu_torch.ops import epipolar
     from hso_tpu_torch.track import coarse_tracker, matcher, pose_optimizer
 
     return patched([
         (coarse_tracker, "extract_windows", window_cuda.extract_windows_plain),
+        (depth_filter, "extract_windows", window_cuda.extract_windows_plain),
         (epipolar, "pack_level_windows_gather", window_cuda.pack_level_windows_plain),
         (matcher, "align_match", align_cuda.align_match_plain),
+        (depth_filter, "align_match", align_cuda.align_match_plain),
         (coarse_tracker, "coarse_level_ic", coarse_cuda.coarse_level_ic_plain),
         (pose_optimizer, "pose_lm", pose_cuda.pose_lm_plain),
+        (epipolar, "zmncc_line_scores", epipolar_cuda.zmncc_line_scores_plain),
     ])
 
 
+def shape_tallies():
+    """Counting shims on the call sites of the kernels that run at two window
+    edges: returns (the patch context, {kernel: Tally})."""
+    from hso_tpu_torch.track import coarse_tracker, matcher
+
+    k1 = Tally(window_cuda.extract_windows, lambda a, k: a[3])
+    k2 = Tally(window_cuda.pack_level_windows_gather, lambda a, k: a[4])
+    k4 = Tally(align_cuda.align_match, lambda a, k: k["win"])
+    ctx = patched([(coarse_tracker, "extract_windows", k1),
+                   (depth_filter, "extract_windows", k1),
+                   (epipolar, "pack_level_windows_gather", k2),
+                   (matcher, "align_match", k4),
+                   (depth_filter, "align_match", k4)])
+    return ctx, {"extract_windows": k1, "pack_level_windows": k2, "align_match": k4}
+
+
 def capture_kernel_inputs(step, state, img):
-    """Run one step with recorders on the K3/K4/K5 dispatchers and return
-    the recorded calls: the shapes and data the main path gives them."""
+    """Run one whole step with recorders on the dispatchers and return the
+    recorded calls: the shapes and data the main path gives the kernels."""
     from hso_tpu_torch.track import coarse_tracker, matcher, pose_optimizer
 
-    rec3 = Recorder(coarse_cuda.coarse_level_ic)
-    rec4 = Recorder(align_cuda.align_match)
-    rec5 = Recorder(pose_cuda.pose_lm)
-    with patched([(coarse_tracker, "coarse_level_ic", rec3),
-                  (matcher, "align_match", rec4),
-                  (pose_optimizer, "pose_lm", rec5)]):
-        out = run_one(step, state, img)
-    return rec3.calls, rec4.calls, rec5.calls, out
+    rec = {
+        "coarse": Recorder(coarse_cuda.coarse_level_ic),
+        "align": Recorder(align_cuda.align_match),
+        "pose": Recorder(pose_cuda.pose_lm),
+        "seed_align": Recorder(align_cuda.align_match),
+        "pack": Recorder(window_cuda.pack_level_windows_gather),
+        "zmncc": Recorder(epipolar_cuda.zmncc_line_scores),
+    }
+    with patched([(coarse_tracker, "coarse_level_ic", rec["coarse"]),
+                  (matcher, "align_match", rec["align"]),
+                  (pose_optimizer, "pose_lm", rec["pose"]),
+                  (depth_filter, "align_match", rec["seed_align"]),
+                  (epipolar, "pack_level_windows_gather", rec["pack"]),
+                  (epipolar, "zmncc_line_scores", rec["zmncc"])]):
+        out = run_one(step, state, img, whole=True)
+    return {k: r.calls for k, r in rec.items()}, out
 
 
 # ------------------------------------------------------------------ kernels phase
+def level_stack(pyr, n_levels, device):
+    """The first ``n_levels`` pyramid levels in one zero-padded (L, H0, W0) tensor."""
+    h0, w0 = pyr[0].shape
+    stack = torch.zeros((n_levels, h0, w0), device=device)
+    for l in range(n_levels):
+        hl, wl = pyr[l].shape
+        stack[l, :hl, :wl] = pyr[l]
+    return stack
+
+
+def gather_ms(stack, level, au, av, win, device):
+    """Time of one advanced-indexing gather of the same windows from a padded
+    level stack (the library yardstick of K1/K2)."""
+    ar = torch.arange(win, device=device)
+    rows = av.long()[:, None] + ar
+    cols = au.long()[:, None] + ar
+    lv = level.long()[:, None, None]
+    return time_ms(lambda: stack[lv, rows[:, :, None], cols[:, None, :]], device)
+
+
 def check_windows(cur_pyr, device, results):
     g = torch.Generator(device="cpu").manual_seed(0)
     win, n = 24, 336
@@ -236,9 +314,6 @@ def check_windows(cur_pyr, device, results):
                               - window_cuda.extract_windows_plain(img, au_o, av_o, win))
                              .abs().max()))
     assert worst <= 1e-6, f"extract_windows disagrees with its plain version: {worst}"
-    ar = torch.arange(win, device=device)
-    rows = av.long()[:, None] + ar
-    cols = au.long()[:, None] + ar
     nbytes = 2 * n * win * win * 4 + 2 * n * 4
     b_ms, b_by = bound(nbytes, 0)
     results["extract_windows"] = dict(
@@ -246,7 +321,7 @@ def check_windows(cur_pyr, device, results):
         ms=time_ms(lambda: window_cuda.extract_windows_cuda(img, au, av, win), device),
         plain_ms=time_ms(lambda: window_cuda.extract_windows_plain(img, au, av, win), device,
                          inner=2),
-        library_ms=time_ms(lambda: img[rows[:, :, None], cols[:, None, :]], device),
+        library_ms=gather_ms(img[None], torch.zeros_like(au), au, av, win, device),
         bound_ms=b_ms, bound_by=b_by)
 
     # K2: per-row levels, centres partly outside the image
@@ -274,14 +349,6 @@ def check_windows(cur_pyr, device, results):
     assert worst <= 1e-6, f"pack_level_windows disagrees with its plain version: {worst}"
     level, au, av = timing
     s = 336
-    h0, w0 = cur_pyr[0].shape
-    stack = torch.zeros((n_levels, h0, w0), device=device)
-    for l in range(n_levels):
-        hl, wl = cur_pyr[l].shape
-        stack[l, :hl, :wl] = cur_pyr[l]
-    rows = av.long()[:, None] + ar
-    cols = au.long()[:, None] + ar
-    lv = level.long()[:, None, None]
     nbytes = 2 * s * win * win * 4 + 3 * s * 4
     b_ms, b_by = bound(nbytes, 0)
     results["pack_level_windows"] = dict(
@@ -290,7 +357,7 @@ def check_windows(cur_pyr, device, results):
             cur_pyr, level, au, av, win, n_levels), device),
         plain_ms=time_ms(lambda: window_cuda.pack_level_windows_plain(
             cur_pyr, level, au, av, win, n_levels), device, inner=2),
-        library_ms=time_ms(lambda: stack[lv, rows[:, :, None], cols[:, None, :]], device),
+        library_ms=gather_ms(level_stack(cur_pyr, n_levels, device), level, au, av, win, device),
         bound_ms=b_ms, bound_by=b_by)
 
 
@@ -344,8 +411,8 @@ def check_coarse(calls, device, results):
         library_ms=None, bound_ms=b_ms, bound_by=b_by)
 
 
-def check_align(calls, device, results):
-    assert len(calls) == 2, f"expected 2 alignment passes, got {len(calls)}"
+def check_align(calls, device, results, key="align_match", n_calls=2):
+    assert len(calls) == n_calls, f"expected {n_calls} alignment passes, got {len(calls)}"
     worst = 0.0
     n_conv = []
     for args, kw in calls:
@@ -375,9 +442,10 @@ def check_align(calls, device, results):
     nbytes = s * (win * win + 100) * 4 + s * 16 + s * 16 + 2 * s + 8 * s * 4
     flops = s * ((n_iter + 1) * 64 * 32 + 64 * 40)
     b_ms, b_by = bound(nbytes, flops)
-    results["align_match"] = dict(
-        max_abs_err=worst, tol=5e-3, shape=f"S={s} (also {calls[1][0][5].shape[0]}) win={win} "
-        f"n_iter={n_iter}", converged=n_conv,
+    also = f" (also {calls[1][0][5].shape[0]})" if len(calls) > 1 else ""
+    results[key] = dict(
+        max_abs_err=worst, tol=5e-3, shape=f"S={s}{also} win={win} n_iter={n_iter}",
+        converged=n_conv,
         ms=time_ms(lambda: align_cuda.align_match_cuda(*args, **kw), device),
         plain_ms=time_ms(lambda: align_cuda.align_match_plain(*args, **kw), device,
                          inner=2),
@@ -419,22 +487,165 @@ def check_pose(calls, device, results):
         library_ms=None, bound_ms=b_ms, bound_by=b_by)
 
 
+def check_pack_sweep(calls, device, results):
+    """K2 at the sweep's shape (S seed slots, win 40) on the recorded call."""
+    sweep = [c for c in calls if c[0][4] == epipolar.EW]
+    assert len(sweep) == 1, f"expected 1 win-{epipolar.EW} window pack, got {len(sweep)}"
+    (pyr, level, au, av, win, n_levels), _ = sweep[0]
+    pyr = [p.contiguous() for p in pyr[:n_levels]]
+    got = window_cuda.pack_level_windows_cuda(pyr, level, au, av, win, n_levels)
+    ref = window_cuda.pack_level_windows_plain(pyr, level, au, av, win, n_levels)
+    worst = float((got - ref).abs().max())
+    assert worst <= 1e-6, f"pack_level_windows (win {win}) disagrees: {worst}"
+    s = level.shape[0]
+    b_ms, b_by = bound(2 * s * win * win * 4 + 3 * s * 4, 0)
+    results["pack_level_windows@sweep"] = dict(
+        max_abs_err=worst, tol=1e-6,
+        shape=f"S={s} win={win} levels={n_levels}",
+        ms=time_ms(lambda: window_cuda.pack_level_windows_cuda(
+            pyr, level, au, av, win, n_levels), device),
+        plain_ms=time_ms(lambda: window_cuda.pack_level_windows_plain(
+            pyr, level, au, av, win, n_levels), device, inner=2),
+        library_ms=gather_ms(level_stack(pyr, n_levels, device), level, au, av, win, device),
+        bound_ms=b_ms, bound_by=b_by)
+
+
+def check_extract_seed(calls, device, results):
+    """K1 at the seed table's shape (win 44) on the calls recorded from
+    ``init_seeds``: one per pyramid level."""
+    assert len(calls) == 3, f"expected 3 host-window extractions, got {len(calls)}"
+    worst = 0.0
+    for (img, au, av, win), _ in calls:
+        assert win == SEED_WIN
+        worst = max(worst, float((window_cuda.extract_windows_cuda(img, au, av, win)
+                                  - window_cuda.extract_windows_plain(img, au, av, win))
+                                 .abs().max()))
+    assert worst <= 1e-6, f"extract_windows (win {SEED_WIN}) disagrees: {worst}"
+    (img, au, av, win), _ = calls[0]
+    n = au.shape[0]
+    h, w = img.shape
+    b_ms, b_by = bound(2 * n * win * win * 4 + 2 * n * 4, 0)
+    results["extract_windows@seed"] = dict(
+        max_abs_err=worst, tol=1e-6,
+        shape=f"N={n} win={win} image={h}x{w} (level 0; also levels 1, 2)",
+        ms=time_ms(lambda: window_cuda.extract_windows_cuda(img, au, av, win), device),
+        plain_ms=time_ms(lambda: window_cuda.extract_windows_plain(img, au, av, win), device,
+                         inner=2),
+        library_ms=gather_ms(img[None], torch.zeros_like(au), au, av, win, device),
+        bound_ms=b_ms, bound_by=b_by)
+
+
+ZMNCC_ORDER = ("windows", "ref_patch", "su0", "sv0", "dir_u", "dir_v", "n_line", "au", "av",
+               "hs", "ws")
+
+
+def compare_line_scores(got, ref, what):
+    """Kernel result against the plain one: the sets of finite, -inf and NaN
+    rows and the best step exact, scores to 2e-4.  Returns the largest score
+    difference."""
+    (b_k, s_k, k_k), (b_p, s_p, k_p) = got, ref
+    for name, a, b in (("best", b_k, b_p), ("second", s_k, s_p)):
+        assert bool((torch.isfinite(a) == torch.isfinite(b)).all()), f"{what}: finite {name}"
+        assert bool((torch.isnan(a) == torch.isnan(b)).all()), f"{what}: NaN {name}"
+    assert bool((k_k == k_p).all()), \
+        f"{what}: best step differs on {int((k_k != k_p).sum())} rows"
+    worst = 0.0
+    for a, b in ((b_k, b_p), (s_k, s_p)):
+        m = torch.isfinite(b)
+        if bool(m.any()):
+            worst = max(worst, float((a - b)[m].abs().max()))
+    assert worst <= 2e-4, f"{what}: scores differ by {worst}"
+    return worst
+
+
+def check_zmncc(calls, cur_pyr, device, results):
+    assert len(calls) == 1, f"expected 1 epipolar search per frame, got {len(calls)}"
+    args, kw = calls[0]
+    n_steps = args[11]
+    s, ew = args[0].shape[0], args[0].shape[-1]
+    assert ew == epipolar.EW and n_steps == 40
+    got = epipolar_cuda.zmncc_line_scores_cuda(*args)
+    ref = epipolar_cuda.zmncc_line_scores_plain(*args)
+    worst = compare_line_scores(got, ref, "zmncc (recorded call)")
+    n_finite = int(torch.isfinite(ref[0]).sum())
+    again = epipolar_cuda.zmncc_line_scores_cuda(*args)
+    for a, b in zip(got, again):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32)), "zmncc: second run differs"
+
+    # a wider window (EW 48) on seeded noise windows with the adversarial rows:
+    # low contrast, a segment wholly outside the window, a segment ending on
+    # the last map column, a window at the image corner, a zero direction; and
+    # one non-finite window entry, which must turn its row (only) into NaN
+    case = testing.line_score_cases(s=256, ew=48, n_steps=n_steps, seed=0)
+    case["windows"][9, 3, 3] = np.inf
+    a48 = [torch.as_tensor(case[k], device=device) for k in ZMNCC_ORDER]
+    got48 = epipolar_cuda.zmncc_line_scores_cuda(*a48, n_steps)
+    ref48 = epipolar_cuda.zmncc_line_scores_plain(*a48, n_steps)
+    worst = max(worst, compare_line_scores(got48, ref48, "zmncc (EW 48)"))
+    for out in (got48, ref48):
+        assert bool(torch.isneginf(out[0][1])) and bool(torch.isneginf(out[1][1]))
+        assert int(out[2][1]) == 0
+        assert bool(torch.isnan(out[0][9])) and int(torch.isnan(out[0]).sum()) == 1
+
+    # the search around it on the real pyramid, 48-px windows: a window clipped
+    # at the image corner, a zero-length segment, a dead slot
+    pb = testing.epipolar_problem([tuple(p.shape) for p in cur_pyr[:3]], s=48, seed=7)
+    tt = lambda a: torch.as_tensor(a, device=device)   # noqa: E731
+    windows, anchors, img_hw = epipolar.pack_level_windows(
+        cur_pyr, tt(pb["level"]), tt(pb["center"][:, 0]), tt(pb["center"][:, 1]), 48, 3)
+    ref_patch = torch.stack([tt(testing.bilinear_patch(
+        cur_pyr[int(l)].cpu().numpy(), float(c[0]), float(c[1]), size=8))
+        for l, c in zip(pb["level"], pb["center"])])
+    sargs = (windows, anchors, img_hw, ref_patch, tt(pb["px_far"]), tt(pb["px_close"]),
+             tt(pb["valid"]))
+    out_k = epipolar.epipolar_zmncc_search(*sargs)
+    with patched([(epipolar, "zmncc_line_scores", epipolar_cuda.zmncc_line_scores_plain)]):
+        out_p = epipolar.epipolar_zmncc_search(*sargs)
+    assert torch.equal(out_k["ok"], out_p["ok"]) and torch.equal(out_k["n_line"], out_p["n_line"])
+    assert int(out_p["ok"].sum()) > 20 and not bool(out_p["ok"][2])
+    okm = out_p["ok"]
+    assert float((out_k["px_best"] - out_p["px_best"])[okm].abs().max()) <= 1e-4
+    worst = max(worst, float((out_k["score_best"] - out_p["score_best"])[okm].abs().max()))
+    assert worst <= 2e-4
+
+    ow = ew - 7
+    nbytes = s * (ew * ew + 64) * 4 + s * 9 * 4 + s * 3 * 4
+    flops = s * (ew * ow * 22 + ow * ow * (14 + 127 + 8) + n_steps * 30)
+    b_ms, b_by = bound(nbytes, flops)
+    results["zmncc_line_scores"] = dict(
+        max_abs_err=worst, tol=2e-4,
+        shape=f"S={s} EW={ew} n_steps={n_steps} ({n_finite} rows with a finite best; "
+        "also S=256 EW=48)",
+        ms=time_ms(lambda: epipolar_cuda.zmncc_line_scores_cuda(*args), device),
+        plain_ms=time_ms(lambda: epipolar_cuda.zmncc_line_scores_plain(*args), device,
+                         inner=2),
+        library_ms=None, bound_ms=b_ms, bound_by=b_by)
+
+
 # ------------------------------------------------------------------ track phase
 def initial_state(cam, cfg, device):
-    (snap, prev_pyr, grad_mean, intensity, exposure, T_prev, prev_obs,
-     frame_count) = track_state_from_checkpoint(BOOT_NPZ, cam, cfg, device)
+    """The state both steps start from (the tracking step ignores the seed
+    members), and the checkpoint's bookkeeping."""
+    (snap, prev_pyr, grad_mean, intensity, exposure, T_prev, prev_obs, frame_count, seeds,
+     seed_ring, batch_counter, px_error_angle) = checkpoint.frame_state_from_checkpoint(
+        BOOT_NPZ, cam, cfg, device)
     p = snap["pos_w"].shape[0]
     state = dict(snap=snap, prev_pyr=prev_pyr, prev_grad_mean=grad_mean,
                  prev_intensity=intensity, exposure_prev=exposure, T_prev=T_prev,
                  prev_obs=prev_obs, acc=torch.zeros((2, p), dtype=torch.int32, device=device),
-                 T_rel=torch.as_tensor(se3np.identity().astype(np.float32), device=device))
-    return state, frame_count
+                 T_rel=torch.as_tensor(se3np.identity().astype(np.float32), device=device),
+                 seeds=seeds, px_error_angle=px_error_angle)
+    return state, dict(frame_count=frame_count, seed_ring=seed_ring,
+                       batch_counter=batch_counter)
 
 
-def run_one(step, state, img):
-    return step(img, state["prev_pyr"], state["prev_grad_mean"], state["T_prev"],
-                state["prev_obs"], state["prev_intensity"], state["exposure_prev"],
-                state["T_rel"], state["snap"], state["acc"])
+def run_one(step, state, img, whole: bool = False):
+    head = (img, state["prev_pyr"], state["prev_grad_mean"], state["T_prev"],
+            state["prev_obs"], state["prev_intensity"], state["exposure_prev"],
+            state["T_rel"], state["snap"])
+    if whole:
+        return step(*head, state["seeds"], state["px_error_angle"], state["acc"])
+    return step(*head, state["acc"])
 
 
 def advance(state, out):
@@ -443,26 +654,93 @@ def advance(state, out):
     nxt.update(prev_pyr=out["data"]["pyr"], prev_grad_mean=out["data"]["grad_mean"],
                prev_intensity=out["data"]["intensity_mean"], exposure_prev=out["exposure"],
                T_prev=out["T_new"], prev_obs=out["obs_next"], acc=out["acc"])
+    if "seeds" in out:
+        nxt["seeds"] = out["seeds"]
     return nxt
 
 
-def run_track(step, state, frames, device):
-    """Track the frames; returns (per-frame records, ms per frame)."""
+def run_track(step, state, frames, device, whole: bool = False):
+    """Run the frames through a step; returns (per-frame records, ms per
+    frame, the state after the last frame)."""
     recs, ms = [], []
     for img in frames:
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         t0 = time.perf_counter()
-        out = run_one(step, state, img)
+        out = run_one(step, state, img, whole)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         ms.append((time.perf_counter() - t0) * 1e3)
-        recs.append(dict(T_new=out["T_new"].cpu().numpy(), packed=out["packed"].cpu().numpy(),
-                         acc=out["acc"].cpu().numpy(), px=out["px"].cpu().numpy(),
-                         n_inliers=int(out["n_inliers"]), n_matches=int(out["n_matches"]),
-                         used_fc=bool(out["used_fc"])))
+        rec = dict(T_new=out["T_new"].cpu().numpy(), packed=out["packed"].cpu().numpy(),
+                   acc=out["acc"].cpu().numpy(), px=out["px"].cpu().numpy(),
+                   n_inliers=int(out["n_inliers"]), n_matches=int(out["n_matches"]),
+                   used_fc=bool(out["used_fc"]), exposure=float(out["exposure"]))
+        if whole:
+            rec.update(kf_pack=out["kf_pack"].cpu().numpy(),
+                       n_seeds_updated=int(out["n_seeds_updated"]),
+                       seed_matched=out["seed_matched"].cpu().numpy(),
+                       mu=out["seeds"]["mu"].cpu().numpy(),
+                       sigma2=out["seeds"]["sigma2"].cpu().numpy(),
+                       obs_count=out["seeds"]["obs_count"].cpu().numpy(),
+                       seeds_valid=out["seeds"]["valid"].cpu().numpy())
+        recs.append(rec)
         state = advance(state, out)
-    return recs, ms
+    return recs, ms, state
+
+
+def check_run(recs, gt, what):
+    """The gates of a tracked run: finite poses, inliers, trajectory error."""
+    assert all(np.isfinite(r["T_new"]).all() and r["T_new"].shape == (3, 4) for r in recs)
+    min_inl = min(r["n_inliers"] for r in recs)
+    assert min_inl >= 50, f"{what}: a frame kept only {min_inl} inliers"
+    rmse = track_ate(recs, gt)
+    assert rmse < 0.10, f"{what}: ATE RMSE {rmse:.4f} m exceeds the 0.10 m gate"
+    return min_inl, rmse
+
+
+def assert_same_run(a_recs, b_recs, keys, what):
+    for k, (a, b) in enumerate(zip(a_recs, b_recs)):
+        for key in keys:
+            assert np.array_equal(a[key], b[key], equal_nan=True), \
+                f"{what}: frame {k} differs in {key}"
+
+
+# ------------------------------------------------------------------ seeds phase
+def detections_from_keyframe(z, kf: int) -> dict:
+    """A keyframe's stored observation table as a detection set (numpy)."""
+    pre = f"kf{kf}_obs_"
+    return dict(px=z[pre + "px"], level=z[pre + "level"], species=z[pre + "species"],
+                grad=z[pre + "grad"], valid=z[pre + "valid"], f=z[pre + "f"])
+
+
+def seed_life(seeds_np, det_np, pyr_np, host_slot, batch_id, depth_mean, depth_min,
+              ring_T_np, ring_exp_np, sweeps, px_error_angle, cam, device):
+    """``init_seeds`` into the free slots, one sweep per (image, pose,
+    exposure) of ``sweeps``, then ``harvest_and_prune``; all on ``device``
+    from numpy state.  Returns numpy results."""
+    tt = lambda a: torch.as_tensor(a, device=device)   # noqa: E731
+    seeds = checkpoint.seeds_from_numpy(seeds_np, device)
+    det = {k: tt(det_np[k]) for k in ("px", "level", "species", "grad", "valid")}
+    pyr = tuple(tt(p) for p in pyr_np)
+    seeds = depth_filter.init_seeds(seeds, det, pyr, tt(det_np["f"]), host_slot, batch_id,
+                                    depth_mean, depth_min, 200.0)
+    after_init = checkpoint.seeds_to_numpy(seeds)
+    ring_T, ring_exp = tt(ring_T_np), tt(ring_exp_np)
+    n_updated = []
+    for img, T_new, exposure in sweeps:
+        data = build_frame_pyramids(img, device=device)
+        seeds, stats = depth_filter.update_seeds(
+            seeds, ring_T, ring_exp, data["pyr"], data["sobel_x"], data["sobel_y"],
+            tt(T_new), exposure, px_error_angle, cam)
+        n_updated.append(int(stats["n_updated"]))
+    swept = checkpoint.seeds_to_numpy(seeds)
+    seeds, bundle = depth_filter.harvest_and_prune(seeds, batch_id, ring_T,
+                                                   focal=float(cam.focal_mean))
+    idx = torch.nonzero(bundle[:, 0] > 0.5)[:, 0]
+    rows = depth_filter.gather_seed_windows(seeds["host_win"], seeds["host_anchor"], idx)
+    return dict(after_init=after_init, swept=swept, n_updated=n_updated,
+                bundle=bundle.cpu().numpy(), valid_after=seeds["valid"].cpu().numpy(),
+                harvest_rows=rows.cpu().numpy())
 
 
 def track_ate(recs, gt_poses) -> float:
@@ -493,66 +771,204 @@ def main() -> int:
          library=os.path.relpath(_cuda_build.build(), ROOT))
 
     cam, cfg = bench_camera(), Config()
-    step, grid, n_obs_pad = build_step(cam, cfg, device)
-    state0, frame_count = initial_state(cam, cfg, device)
+    track_step, grid, n_obs_pad = build_step(cam, cfg, device)
+    frame_step, _, _ = build_step(cam, cfg, device, whole=True)
+    state0, book = initial_state(cam, cfg, device)
+    frame_count = book["frame_count"]
     poses = trajectory(frame_count + N_FRAMES)
     gt = poses[frame_count:frame_count + N_FRAMES]
     scene = bench_scene(cam)
     frames = [scene.render(T) for T in gt]
+    z = np.load(BOOT_NPZ, allow_pickle=False)
+    last_kf = int(z["kf_count"]) - 1
+    det_np = detections_from_keyframe(z, last_kf)
+    kf_pyr_np = [z[f"lastkf_pyr_{l}"] for l in range(3)]
+    host_slot = int(np.nonzero(book["seed_ring"] == last_kf)[0][0])
+    n_slots = int(state0["seeds"]["valid"].shape[0])
 
     # ---- kernels: each against its plain version at the main path's shapes
     results = {}
-    rec3, rec4, rec5, out0 = capture_kernel_inputs(step, state0, frames[0])
+    rec, out0 = capture_kernel_inputs(frame_step, state0, frames[0])
     assert not out0["used_fc"], "frame 0 took the FC branch: no K3 inputs to check"
     check_windows(out0["data"]["pyr"], device, results)
-    check_coarse(rec3, device, results)
-    check_align(rec4, device, results)
-    check_pose(rec5, device, results)
+    check_coarse(rec["coarse"], device, results)
+    check_align(rec["align"], device, results)
+    check_pose(rec["pose"], device, results)
+    check_zmncc(rec["zmncc"], out0["data"]["pyr"], device, results)
+    check_pack_sweep(rec["pack"], device, results)
+    check_align(rec["seed_align"], device, results, key="align_match@sweep", n_calls=1)
+    rec1 = Recorder(window_cuda.extract_windows)
+    with patched([(depth_filter, "extract_windows", rec1)]):
+        depth_filter.init_seeds(
+            state0["seeds"], {k: torch.as_tensor(det_np[k], device=device)
+                              for k in ("px", "level", "species", "grad", "valid")},
+            tuple(torch.as_tensor(p, device=device) for p in kf_pyr_np),
+            torch.as_tensor(det_np["f"], device=device), host_slot, book["batch_counter"] + 1,
+            float(out0["depth_mean"]), float(out0["depth_min"]), 200.0)
+    check_extract_seed(rec1.calls, device, results)
     torch.cuda.synchronize(device)
     for name, r in results.items():
         emit("kernels", name=name, card=smi, **r)
 
-    # ---- track: the main path, counters set to 0 just before, read just after
+    # ---- track: the tracking half, counters set to 0 just before, read just after
     zero_counters()
-    recs, ms = run_track(step, state0, frames, device)
-    launches = read_counters()
-    n_ic = sum(not r["used_fc"] for r in recs)
-    for name, n in launches.items():
-        assert n > 0, f"kernel {name} was never launched on the main path"
-    assert all(np.isfinite(r["T_new"]).all() and r["T_new"].shape == (3, 4) for r in recs)
-    min_inl = min(r["n_inliers"] for r in recs)
-    assert min_inl >= 50, f"a frame kept only {min_inl} inliers"
-    rmse = track_ate(recs, gt)
-    assert rmse < 0.10, f"ATE RMSE {rmse:.4f} m exceeds the 0.10 m gate"
+    recs_t, ms_t, _ = run_track(track_step, state0, frames, device)
+    launches_t = read_counters()
+    n_ic = sum(not r["used_fc"] for r in recs_t)
+    for name in TRACK_KERNELS:
+        assert launches_t[name] > 0, f"kernel {name} was never launched on the track path"
+    assert launches_t["zmncc_line_scores"] == 0
+    min_inl_t, rmse_t = check_run(recs_t, gt, "track")
 
     # second run: bitwise equal
-    recs2, _ = run_track(step, state0, frames, device)
-    for a, b in zip(recs, recs2):
-        for k in ("T_new", "packed", "acc", "px"):
-            assert np.array_equal(a[k], b[k], equal_nan=True), f"second run differs in {k}"
+    recs_t2, _, _ = run_track(track_step, state0, frames, device)
+    assert_same_run(recs_t, recs_t2, ("T_new", "packed", "acc", "px"), "track, second run")
 
     # frame 1 with the plain versions on the card
     with plain_kernels():
         before = read_counters()
-        ref1 = run_one(step, state0, frames[0])
+        ref1 = run_one(track_step, state0, frames[0])
         assert read_counters() == before, "the plain run launched a kernel"
-    d_plain = se3_dist(torch.as_tensor(recs[0]["T_new"]), ref1["T_new"])
+    d_plain = se3_dist(torch.as_tensor(recs_t[0]["T_new"]), ref1["T_new"])
     assert d_plain < 1e-3, f"frame 1: kernels and plain versions differ by {d_plain}"
 
     emit("track", card=smi, frames=N_FRAMES, first_frame=frame_count, grid=list(grid),
          n_obs_pad=n_obs_pad, points=int(state0["snap"]["pos_w"].shape[0]),
-         ms_per_frame_median=statistics.median(ms), ms_per_frame_first=ms[0],
-         ic_frames=n_ic, fc_frames=N_FRAMES - n_ic, launches=launches,
-         launches_per_frame={k: v / N_FRAMES for k, v in launches.items()},
-         min_inliers=min_inl, min_matches=min(r["n_matches"] for r in recs),
-         ate_rmse_m=rmse, frame1_vs_plain=d_plain, second_run_bitwise_equal=True)
+         ms_per_frame_median=statistics.median(ms_t), ms_per_frame_first=ms_t[0],
+         ic_frames=n_ic, fc_frames=N_FRAMES - n_ic, launches=launches_t,
+         launches_per_frame={k: v / N_FRAMES for k, v in launches_t.items()},
+         min_inliers=min_inl_t, min_matches=min(r["n_matches"] for r in recs_t),
+         ate_rmse_m=rmse_t, frame1_vs_plain=d_plain, second_run_bitwise_equal=True)
 
-    print(json.dumps({"kernels": [
-        dict(name=name, route="cuda", source=KERNEL_META[name][0],
-             replaces=KERNEL_META[name][1], launches=launches[name],
-             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
-             bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"])
-        for name, r in results.items()]}), flush=True)
+    # ---- frame: the whole step (the main path), counters set to 0 just
+    # before, read just after; call sites tallied by window edge
+    ctx, tallies = shape_tallies()
+    with ctx:
+        zero_counters()
+        recs_f, ms_f, state_end = run_track(frame_step, state0, frames, device, whole=True)
+        launches_f = read_counters()
+    for name in FRAME_KERNELS:
+        assert launches_f[name] > 0, f"kernel {name} was never launched on the main path"
+    for name, tally in tallies.items():
+        assert sum(tally.counts.values()) == launches_f[name], \
+            f"{name}: call sites {tally.counts} but {launches_f[name]} launches"
+    assert launches_f["zmncc_line_scores"] == N_FRAMES
+    assert tallies["pack_level_windows"].counts == {24: 2 * N_FRAMES, epipolar.EW: N_FRAMES}
+    assert tallies["align_match"].counts == {24: 2 * N_FRAMES, epipolar.EW: N_FRAMES}
+    assert launches_f["pack_level_windows"] == launches_f["align_match"] == 3 * N_FRAMES
+    min_inl_f, rmse_f = check_run(recs_f, gt, "frame")
+    # with a frozen map the sweep feeds nothing back into tracking: the poses
+    # of the two paths must be the same bits
+    assert_same_run(recs_f, recs_t, ("T_new", "acc", "px"), "frame vs track path")
+    seeds_updated = sum(r["n_seeds_updated"] for r in recs_f)
+    assert seeds_updated > 0, "the sweep updated no seed in 24 frames"
+    valid0 = state0["seeds"]["valid"].cpu().numpy()
+    assert all(np.array_equal(r["seeds_valid"], valid0) for r in recs_f), \
+        "the sweep changed which seed slots are live"
+    assert all(r["packed"][19] == r["n_seeds_updated"] for r in recs_f)
+    p_rows = int(state0["snap"]["pos_w"].shape[0])
+    assert recs_f[0]["kf_pack"].shape == (grid[1] * grid[2] * 11 + 2 * p_rows + 3 * n_slots,)
+
+    # second run: bitwise equal
+    recs_f2, _, _ = run_track(frame_step, state0, frames, device, whole=True)
+    assert_same_run(recs_f, recs_f2, ("T_new", "packed", "kf_pack", "mu", "sigma2", "obs_count"),
+                    "frame, second run")
+
+    # frame 1 with every kernel routed to its plain version, on the card
+    with plain_kernels():
+        before = read_counters()
+        ref1 = run_one(frame_step, state0, frames[0], whole=True)
+        assert read_counters() == before, "the plain run launched a kernel"
+    d_plain_f = se3_dist(torch.as_tensor(recs_f[0]["T_new"]), ref1["T_new"])
+    assert d_plain_f < 1e-3, f"frame 1: kernels and plain versions differ by {d_plain_f}"
+    m_k = recs_f[0]["seed_matched"]
+    m_p = ref1["seed_matched"].cpu().numpy()
+    n_flip = int((m_k != m_p).sum())
+    assert n_flip <= 4, f"frame 1: {n_flip} seeds matched by one of kernels/plain only"
+    both = m_k & m_p
+    assert both.sum() > 50
+    d_mu = float(np.abs(recs_f[0]["mu"] - ref1["seeds"]["mu"].cpu().numpy())[both].max())
+    assert d_mu <= 1e-3, f"frame 1: seed mu differs by {d_mu} between kernels and plain"
+
+    emit("frame", card=smi, frames=N_FRAMES, first_frame=frame_count, seed_slots=n_slots,
+         seeds_valid=int(valid0.sum()),
+         ms_per_frame_median=statistics.median(ms_f), ms_per_frame_first=ms_f[0],
+         track_ms_per_frame_median=statistics.median(ms_t),
+         launches=launches_f,
+         launches_per_frame={k: v / N_FRAMES for k, v in launches_f.items()},
+         launches_by_window={k: {str(w): n for w, n in t.counts.items()}
+                             for k, t in tallies.items()},
+         min_inliers=min_inl_f, ate_rmse_m=rmse_f, t_new_equals_track_path=True,
+         seeds_updated_total=seeds_updated,
+         seeds_updated_per_frame=[r["n_seeds_updated"] for r in recs_f],
+         frame1_vs_plain=d_plain_f, frame1_matched_flips=n_flip, frame1_mu_vs_plain=d_mu,
+         second_run_bitwise_equal=True)
+
+    # ---- seeds: the seed table's life on the card and on the CPU from the
+    # same numpy state: fill the free slots from the last keyframe's
+    # observation table, three sweeps, harvest
+    seeds_np = checkpoint.seeds_to_numpy(state_end["seeds"])
+    ring_T_np = state0["snap"]["ring_T"].cpu().numpy()
+    ring_exp_np = state0["snap"]["ring_exp"].cpu().numpy()
+    sweeps = [(frames[k], recs_f[k]["T_new"], recs_f[k]["exposure"]) for k in (8, 16, 23)]
+    life_args = (seeds_np, det_np, kf_pyr_np, host_slot, book["batch_counter"] + 1,
+                 float(out0["depth_mean"]), float(out0["depth_min"]), ring_T_np, ring_exp_np,
+                 sweeps, state0["px_error_angle"], cam)
+    ctx, tallies_s = shape_tallies()
+    with ctx:
+        zero_counters()
+        life_k = seed_life(*life_args, device)
+        launches_s = read_counters()
+    assert tallies_s["extract_windows"].counts == {SEED_WIN: 3}
+    assert launches_s["zmncc_line_scores"] == len(sweeps)
+    life_c = seed_life(*life_args, torch.device("cpu"))
+    assert read_counters() == launches_s, "the CPU run launched a kernel"
+    for k in ("valid", "host", "batch_id", "level", "species", "host_anchor", "temp_point"):
+        assert np.array_equal(life_k["after_init"][k], life_c["after_init"][k]), \
+            f"init_seeds: {k} differs between the card and the CPU"
+    assert np.array_equal(life_k["after_init"]["host_win"], life_c["after_init"]["host_win"])
+    n_new = int(life_k["after_init"]["valid"].sum() - seeds_np["valid"].sum())
+    assert n_new == min(int(det_np["valid"].sum()), int((~seeds_np["valid"]).sum())) > 0
+    bk, bc = life_k["bundle"], life_c["bundle"]
+    flag_flips = int((bk[:, :2] != bc[:, :2]).sum())
+    assert flag_flips <= 2, f"harvest flags differ on {flag_flips} entries"
+    assert np.array_equal(bk[:, 2], bc[:, 2]) and np.array_equal(bk[:, 8:10], bc[:, 8:10])
+    m_both = (life_k["swept"]["n_updates"] == life_c["swept"]["n_updates"]) \
+        & life_k["swept"]["valid"]
+    assert m_both.mean() >= 0.98 * life_k["swept"]["valid"].mean()
+    d_mu_s = float(np.abs(life_k["swept"]["mu"] - life_c["swept"]["mu"])[m_both].max())
+    assert d_mu_s <= 2e-3, f"seed mu differs by {d_mu_s} between the card and the CPU"
+    assert sum(life_k["n_updated"]) > 0
+    emit("seeds", card=smi, slots=n_slots, valid_before=int(seeds_np["valid"].sum()),
+         detections=int(det_np["valid"].sum()), initialised=n_new,
+         valid_after_init=int(life_k["after_init"]["valid"].sum()),
+         updated_per_sweep=life_k["n_updated"], updated_per_sweep_cpu=life_c["n_updated"],
+         converged=int((bk[:, 0] > 0.5).sum()), stale=int((bk[:, 1] > 0.5).sum()),
+         valid_after_harvest=int(life_k["valid_after"].sum()),
+         harvest_rows=list(life_k["harvest_rows"].shape),
+         harvest_flag_flips_vs_cpu=flag_flips, mu_vs_cpu=d_mu_s, launches=launches_s)
+
+    def launches_of(key):
+        """A results key is ``kernel`` or ``kernel@where``: launches of that
+        kernel at that entry's window edge, on the path that runs it."""
+        name, _, where = key.partition("@")
+        if where == "seed":
+            return name, tallies_s[name].counts[SEED_WIN]
+        if where == "sweep":
+            return name, tallies[name].counts[epipolar.EW]
+        if name in tallies:
+            return name, tallies[name].counts[24]
+        return name, launches_f[name]
+
+    kernels = []
+    for key, r in results.items():
+        name, n = launches_of(key)
+        kernels.append(dict(
+            name=name, shape=r["shape"], route="cuda", source=KERNEL_META[name][0],
+            replaces=KERNEL_META[name][1], launches=n, max_abs_err=r["max_abs_err"],
+            ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"], library_ms=r["library_ms"]))
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

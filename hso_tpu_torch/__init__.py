@@ -7,8 +7,10 @@ is hand-written CUDA C++ under ``csrc/`` (built at first use, see
 argument (default ``"cuda"``); CPU tensors take each kernel's plain PyTorch
 version.
 
-Ported so far: the tracking half of the per-frame step
-(:func:`hso_tpu_torch.pipeline.fused_step.make_track_step`).
+Ported so far: the whole per-frame step
+(:func:`hso_tpu_torch.pipeline.fused_step.make_frame_step`: tracking,
+matching, pose refinement and the depth-filter seed sweep) and the seed
+table's life on the device (:mod:`hso_tpu_torch.mapping.depth_filter`).
 """
 
 __version__ = "0.1.0"

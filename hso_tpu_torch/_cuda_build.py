@@ -119,6 +119,7 @@ _SIGNATURES = {
                             ctypes.POINTER(PatternTable), _I, _I, _I, _I, _I, _P, _P],
     "hso_align_match": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P],
     "hso_pose_lm": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P],
+    "hso_zmncc_line_scores": [_P] * 11 + [_I, _I, _I] + [_P, _P, _P, _P],
 }
 
 

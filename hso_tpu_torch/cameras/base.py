@@ -20,6 +20,10 @@ class _NumpyOps:
     full_like = staticmethod(np.full_like)
     ones_like = staticmethod(np.ones_like)
     norm = staticmethod(lambda f: np.linalg.norm(f, axis=-1, keepdims=True))
+    sqrt = staticmethod(np.sqrt)
+    arctan = staticmethod(np.arctan)
+    tan = staticmethod(np.tan)
+    clamp_min = staticmethod(np.maximum)
 
 
 class _TorchOps:
@@ -30,6 +34,10 @@ class _TorchOps:
     full_like = staticmethod(torch.full_like)
     ones_like = staticmethod(torch.ones_like)
     norm = staticmethod(lambda f: torch.linalg.norm(f, dim=-1, keepdim=True))
+    sqrt = staticmethod(torch.sqrt)
+    arctan = staticmethod(torch.atan)
+    tan = staticmethod(torch.tan)
+    clamp_min = staticmethod(torch.clamp_min)
 
 
 def _xp(a):
@@ -91,3 +99,21 @@ class AbstractCamera:
         u = xp.floor(px[..., 0])
         v = xp.floor(px[..., 1])
         return (u >= border) & (u < w - border) & (v >= border) & (v < h - border)
+
+    # -- whole-image undistortion -------------------------------------------
+    def undistort_remap(self):
+        """Build (map_x, map_y) float32 numpy arrays of shape (H, W): for each
+        rectified pixel, the source pixel in the raw (distorted) image.
+        Rectified images use the same K."""
+        v, u = np.mgrid[0: self.height, 0: self.width].astype(np.float64)
+        x = (u - self.cx) / self.fx
+        y = (v - self.cy) / self.fy
+        xd, yd = self.distort(x, y)
+        map_x = (xd * self.fx + self.cx).astype(np.float32)
+        map_y = (yd * self.fy + self.cy).astype(np.float32)
+        return map_x, map_y
+
+    def ideal(self) -> "AbstractCamera":
+        """The distortion-free pinhole with the same K (what the pipeline uses
+        after whole-image undistortion)."""
+        return AbstractCamera(self.width, self.height, self.fx, self.fy, self.cx, self.cy)

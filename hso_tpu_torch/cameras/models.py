@@ -1,11 +1,15 @@
-"""Concrete camera models.  Ported so far: pinhole with radial-tangential
-distortion.  The FOV (ATAN) and equidistant fisheye models of the JAX
-package are not ported yet.
+"""Concrete camera models: pinhole with radial-tangential distortion, FOV
+(ATAN) and equidistant fisheye.  The radial-tangential distortion is inverted
+by a fixed-point iteration with a fixed trip count.
 """
 
 from __future__ import annotations
 
-from hso_tpu_torch.cameras.base import AbstractCamera
+import math
+
+import numpy as np
+
+from hso_tpu_torch.cameras.base import AbstractCamera, _xp
 
 
 class PinholeCamera(AbstractCamera):
@@ -46,3 +50,73 @@ class PinholeCamera(AbstractCamera):
             x = (xd - dx) * icdist
             y = (yd - dy) * icdist
         return x, y
+
+
+class FOVCamera(AbstractCamera):
+    """FOV / ATAN model (Devernay-Faugeras), used by TUM MonoVO.
+
+    Normalised intrinsics (< 1.0) are scaled by the image size.  With
+    ``undistort_image=True`` the model acts as an ideal pinhole over
+    pre-rectified images; otherwise the per-point ATAN warp is live."""
+
+    def __init__(self, width, height, fx, fy, cx, cy, omega, undistort_image=False):
+        if cx < 1.0 and cy < 1.0:
+            fx, fy, cx, cy = fx * width, fy * height, cx * width, cy * height
+        super().__init__(width, height, fx, fy, cx, cy)
+        self.omega = float(omega)
+        self.undistort_image = bool(undistort_image)
+        self.has_distortion = (not undistort_image) and abs(self.omega) > 1e-9
+
+    def distort(self, x, y):
+        if not self.has_distortion:
+            return x, y
+        xp = _xp(x)
+        r = xp.sqrt(x * x + y * y)
+        rsafe = xp.clamp_min(r, 1e-12)
+        fac = xp.arctan(2.0 * rsafe * math.tan(self.omega / 2.0)) / (rsafe * self.omega)
+        fac = xp.where(r < 1e-12, xp.ones_like(fac), fac)
+        return fac * x, fac * y
+
+    def undistort(self, xd, yd):
+        if not self.has_distortion:
+            return xd, yd
+        xp = _xp(xd)
+        rd = xp.sqrt(xd * xd + yd * yd)
+        rdsafe = xp.clamp_min(rd, 1e-12)
+        fac = xp.tan(rdsafe * self.omega) / (2.0 * rdsafe * math.tan(self.omega / 2.0))
+        fac = xp.where(rd < 1e-12, xp.ones_like(fac), fac)
+        return fac * xd, fac * yd
+
+
+class EquidistantCamera(AbstractCamera):
+    """Equidistant (Kannala-Brandt) fisheye, k = [k0..k3].
+
+    Whole images are always pre-rectified for this model and points then
+    treated as ideal pinhole; the distortion is only used to build the remap."""
+
+    def __init__(self, width, height, fx, fy, cx, cy, k0, k1, k2, k3):
+        super().__init__(width, height, fx, fy, cx, cy)
+        self.k = (float(k0), float(k1), float(k2), float(k3))
+        self.undistort_image = True
+        self.has_distortion = False  # per-point path is ideal after remap
+
+    def _equi_distort(self, x, y):
+        xp = _xp(x)
+        k0, k1, k2, k3 = self.k
+        r = xp.sqrt(x * x + y * y)
+        theta = xp.arctan(r)
+        t2 = theta * theta
+        t4 = t2 * t2
+        t6 = t4 * t2
+        t8 = t4 * t4
+        thetad = theta * (1.0 + k0 * t2 + k1 * t4 + k2 * t6 + k3 * t8)
+        scaling = xp.where(r > 1e-8, thetad / xp.clamp_min(r, 1e-12), xp.ones_like(r))
+        return x * scaling, y * scaling
+
+    def undistort_remap(self):
+        v, u = np.mgrid[0: self.height, 0: self.width].astype(np.float64)
+        x = (u - self.cx) / self.fx
+        y = (v - self.cy) / self.fy
+        xd, yd = self._equi_distort(x, y)
+        return ((xd * self.fx + self.cx).astype(np.float32),
+                (yd * self.fy + self.cy).astype(np.float32))

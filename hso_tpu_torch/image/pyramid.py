@@ -101,3 +101,12 @@ def build_frame_pyramids(img_u8, n_pyr_levels: int = 3, n_total_levels: int = 5,
         "grad_mean": grad_mean,
         "intensity_mean": intensity_mean,
     }
+
+
+def remap_bilinear(img: torch.Tensor, map_x: torch.Tensor, map_y: torch.Tensor) -> torch.Tensor:
+    """Whole-image undistortion: out[i, j] = bilinear(img, map_x[i, j],
+    map_y[i, j]); source pixels outside the image clamp to the border."""
+    from hso_tpu_torch.image.interp import bilinear
+
+    vals = bilinear(img.to(torch.float32), map_x.reshape(-1), map_y.reshape(-1))
+    return vals.reshape(map_x.shape)

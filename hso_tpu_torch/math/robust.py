@@ -1,4 +1,4 @@
-"""Robust statistics: masked medians, MAD scale, Huber weights (torch).
+"""Robust statistics: masked medians, MAD scale, Huber and Tukey weights (torch).
 
 Every statistic takes a validity mask so it runs over padded slot arrays
 without dynamic shapes (and so without a host sync).
@@ -28,6 +28,25 @@ def masked_median(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     return torch.where(n_valid > 0, med, torch.zeros_like(med))
 
 
+def masked_median_bisect(values: torch.Tensor, mask: torch.Tensor,
+                         n_iter: int = 30) -> torch.Tensor:
+    """Masked upper median by value-range bisection: O(n · iters) elementwise
+    passes instead of a sort.  Converges to the upper-median value within
+    (max − min) / 2^n_iter — for medians that feed a robust threshold, not for
+    an exact order statistic."""
+    finite = mask & torch.isfinite(values)
+    n_valid = torch.sum(finite.to(torch.int64))
+    target = n_valid // 2 + 1          # upper median, 1-based rank
+    lo = torch.min(torch.where(finite, values, torch.full_like(values, float("inf"))))
+    hi = torch.max(torch.where(finite, values, torch.full_like(values, float("-inf"))))
+    for _ in range(n_iter):
+        mid = 0.5 * (lo + hi)
+        hit = torch.sum(((values <= mid) & finite).to(torch.int64)) >= target
+        lo, hi = torch.where(hit, lo, mid), torch.where(hit, mid, hi)
+    med = 0.5 * (lo + hi)
+    return torch.where(n_valid > 0, med, torch.zeros_like(med))
+
+
 def masked_mad_sigma(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """1.4826 * median(|v - median(v)|) over the masked entries."""
     med = masked_median(values, mask)
@@ -43,3 +62,10 @@ def huber_weight(x_over_sigma: torch.Tensor, k: float = 1.345) -> torch.Tensor:
     """w(x) = 1 if |x| < k else k/|x|."""
     ax = torch.abs(x_over_sigma)
     return torch.where(ax < k, torch.ones_like(ax), k / torch.clamp_min(ax, 1e-12))
+
+
+def tukey_weight(x_over_sigma: torch.Tensor, b: float = 4.6851) -> torch.Tensor:
+    """w(x) = (1 − (x/b)²)² for |x| < b else 0."""
+    r = x_over_sigma / b
+    w = 1.0 - r * r
+    return torch.where(torch.abs(x_over_sigma) < b, w * w, torch.zeros_like(w))

@@ -4,8 +4,8 @@ All candidates are aligned at once: (N, 8, 8) patch math, per-candidate
 windows extracted once, every iteration a 4-tap bilinear sample inside the
 window.  This module is the plain PyTorch formulation; the fused device
 kernel and the dispatcher live in :mod:`hso_tpu_torch.ops.align_cuda`.
-``align1d``/``align2d`` of the JAX package are not ported (the pipeline
-uses only the mixed form).
+``align2d`` and ``align1d`` are the all-corner and all-edgelet cases of
+``align_mixed`` (the pipeline uses only the mixed form).
 
 Semantics:
   * 8×8 patches, 10×10 ref patch with border; template gradients by central
@@ -23,10 +23,11 @@ from __future__ import annotations
 import torch
 
 from hso_tpu_torch.math.linalg_small import inv2x2, inv3x3
-from hso_tpu_torch.ops.gatherless import bilinear_grid
+from hso_tpu_torch.ops.gatherless import bilinear_grid, clip_anchor, extract_windows
 
 PATCH = 8
 BORD = PATCH + 2
+WIN = 24
 _HALF = PATCH // 2
 
 
@@ -137,6 +138,54 @@ def align_mixed(is_edge, direction, ref_border, px_init, n_iter: int = 10,
         "cur_patch": final_patch,
         "mean_diff": mean_diff,
     }
+
+
+def _windows_for(cur_img, px_init, windows, anchors, img_hw):
+    """The caller's prebuilt windows, or WIN-px windows cut from ``cur_img``
+    around the initial estimates."""
+    if windows is not None:
+        return windows, anchors, img_hw
+    h, w = cur_img.shape
+    au, av = clip_anchor(px_init[:, 0], px_init[:, 1], WIN, BORD, h, w)
+    return extract_windows(cur_img, au, av, WIN), (au, av), (h, w)
+
+
+def align2d(cur_img, ref_border, px_init, n_iter: int = 10, valid=None,
+            windows=None, anchors=None, img_hw=None):
+    """Batched 2-D alignment (3-DoF [u, v, mean]) of every candidate.
+
+    ``cur_img`` is the (H, W) search image (one pyramid level), or None when
+    prebuilt ``windows`` + ``anchors`` + ``img_hw`` are given; ``ref_border``
+    (N, 10, 10) the warped, exposure-compensated template with border;
+    ``px_init`` (N, 2) in ``cur_img`` coordinates.
+
+    Returns dict(px, converged, chi2, cur_patch, mean_diff)."""
+    n = ref_border.shape[0]
+    dev = ref_border.device
+    windows, anchors, img_hw = _windows_for(cur_img, px_init, windows, anchors, img_hw)
+    direction = torch.tensor([1.0, 0.0], device=dev).expand(n, 2)
+    return align_mixed(torch.zeros((n,), dtype=torch.bool, device=dev), direction, ref_border,
+                       px_init, n_iter=n_iter, valid=valid, windows=windows, anchors=anchors,
+                       img_hw=img_hw)
+
+
+def align1d(cur_img, direction, ref_border, px_init, n_iter: int = 10, valid=None,
+            windows=None, anchors=None, img_hw=None):
+    """Batched 1-D alignment: motion restricted to ``direction`` (N, 2), plus
+    a mean-intensity DoF.  Returns the dict of :func:`align2d` and ``h_inv``,
+    the patch-normalised inverse of the along-direction Hessian entry."""
+    n = ref_border.shape[0]
+    dev = ref_border.device
+    windows, anchors, img_hw = _windows_for(cur_img, px_init, windows, anchors, img_hw)
+    out = align_mixed(torch.ones((n,), dtype=torch.bool, device=dev), direction, ref_border,
+                      px_init, n_iter=n_iter, valid=valid, windows=windows, anchors=anchors,
+                      img_hw=img_hw)
+    _, dx, dy = _template_grads(ref_border)
+    d = direction / torch.clamp_min(torch.linalg.norm(direction, dim=-1, keepdim=True), 1e-9)
+    jd = dx * d[:, None, None, 0] + dy * d[:, None, None, 1]
+    h00 = torch.sum(jd * jd * torch.sqrt(250.0 / (250.0 + jd * jd)), dim=(1, 2)) * 1.001
+    out["h_inv"] = 1.0 / h00 * PATCH * PATCH
+    return out
 
 
 def ncc(patch_a: torch.Tensor, patch_b: torch.Tensor) -> torch.Tensor:

@@ -78,6 +78,31 @@ def grid_in_window(rel_u, rel_v, grid: int, win: int):
             & (rel_u + grid - 1 <= win - 1.0) & (rel_v + grid - 1 <= win - 1.0))
 
 
+def sample_points(img: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Scattered single-point bilinear reads of a whole (H, W) image:
+    out[n] = bilerp(img)(u[n], v[n]) by a 4-tap gather.  A tap outside the
+    image reads 0, and so does a non-finite coordinate."""
+    h, w = img.shape
+    finite = torch.isfinite(u) & torch.isfinite(v)
+    u = torch.where(finite, u, torch.full_like(u, -4.0)).clamp(-4.0, w + 4.0)
+    v = torch.where(finite, v, torch.full_like(v, -4.0)).clamp(-4.0, h + 4.0)
+    x0f = torch.floor(u)
+    y0f = torch.floor(v)
+    fx = u - x0f
+    fy = v - y0f
+    x0 = x0f.to(torch.int64)
+    y0 = y0f.to(torch.int64)
+    flat = img.reshape(-1)
+
+    def tap(xi, yi, wgt):
+        inside = (xi >= 0) & (xi < w) & (yi >= 0) & (yi < h)
+        val = flat[yi.clamp(0, h - 1) * w + xi.clamp(0, w - 1)]
+        return torch.where(inside, val * wgt, torch.zeros_like(val))
+
+    return (tap(x0, y0, (1.0 - fx) * (1.0 - fy)) + tap(x0 + 1, y0, fx * (1.0 - fy))
+            + tap(x0, y0 + 1, (1.0 - fx) * fy) + tap(x0 + 1, y0 + 1, fx * fy))
+
+
 def sample_gradient_in_windows(windows, au, av, u, v):
     """Central-difference image gradient at one sub-pixel point per window.
 

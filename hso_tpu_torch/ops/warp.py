@@ -4,7 +4,8 @@
 all match candidates at once.  The warped 10×10 reference patches are
 sampled from each candidate's memoized host window by 4-tap bilinear
 gathers (:func:`hso_tpu_torch.ops.gatherless.bilinear_scatter_in_windows`).
-The ``memoize_*`` helpers of the JAX package are not ported yet.
+``memoize_level_windows`` extracts those host windows once, at point or
+seed creation.
 """
 
 from __future__ import annotations
@@ -13,7 +14,8 @@ import torch
 import torch.nn.functional as F
 
 from hso_tpu_torch.math.linalg_small import det2x2
-from hso_tpu_torch.ops.gatherless import bilinear_scatter_in_windows
+from hso_tpu_torch.ops.gatherless import (bilinear_scatter_in_windows, clip_anchor,
+                                          extract_windows)
 
 BORD = 10          # bordered patch edge (patch 8 + 1px border)
 HALF_BORD = 5
@@ -102,3 +104,32 @@ def warp_from_stored_windows(host_win, host_anchor, px_host, host_level, A_ref_c
         win_sel = torch.where((delta == d)[:, None, None],
                               _box_blur_window(host_win, 1 << d), win_sel)
     return bilinear_scatter_in_windows(win_sel, hu, hv).reshape(n, BORD, BORD)
+
+
+def memoize_level_windows(pyr, px, level, win: int = 24, n_levels: int = 3):
+    """Extract a (win × win) appearance window per row from its own pyramid
+    level (one call at point/seed creation or patch-source refresh, then
+    matching never reads this pyramid again).  ``px`` is in level-0
+    coordinates.  Returns (windows (N, win, win), anchors (N, 2) int32 in
+    level coordinates)."""
+    n = px.shape[0]
+    dev = px.device
+    out_w = torch.zeros((n, win, win), dtype=torch.float32, device=dev)
+    out_a = torch.zeros((n, 2), dtype=torch.int32, device=dev)
+    for lvl in range(n_levels):
+        img = pyr[lvl]
+        scale = 1.0 / (1 << lvl)
+        au, av = clip_anchor(px[:, 0] * scale, px[:, 1] * scale, win, 0, *img.shape)
+        w_l = extract_windows(img, au, av, win)
+        sel = level == lvl
+        out_w = torch.where(sel[:, None, None], w_l, out_w)
+        out_a = torch.where(sel[:, None], torch.stack([au, av], dim=-1), out_a)
+    return out_w, out_a
+
+
+def memoize_level_windows_packed(pyr, px, level, win: int = 24, n_levels: int = 3):
+    """:func:`memoize_level_windows` with windows and anchors flattened into
+    ONE (N, win·win+2) buffer: a single device→host copy."""
+    w, a = memoize_level_windows(pyr, px, level, win=win, n_levels=n_levels)
+    n = w.shape[0]
+    return torch.cat([w.reshape(n, -1), a.to(torch.float32)], dim=-1)

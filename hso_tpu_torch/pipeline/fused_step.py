@@ -1,20 +1,27 @@
-"""The tracking half of the per-frame step as one function.
+"""The per-frame step as one function.
 
-``make_track_step`` builds ``step(img, …)``: pyramid + Sobel construction,
+``make_frame_step`` builds ``step(img, …)``: pyramid + Sobel construction,
 coarse-to-fine 7-DoF photometric alignment (FC or IC, chosen by the
 gradient-mean test), grid candidate selection with the runner-up retry
-pass, batched direct matching, motion-only pose LM and scene-depth
-statistics.  It is the JAX package's ``make_frame_step`` without the
-depth-filter seed sweep, which is not ported yet: the returned dict has the
-same keys minus ``seeds``, ``n_seeds_updated``, ``seed_match_px``,
-``seed_matched`` and ``kf_pack``, and ``packed[19]`` (seeds updated) is 0.
+pass, batched direct matching, motion-only pose LM, scene-depth statistics
+and the full depth-filter seed sweep
+(:func:`hso_tpu_torch.mapping.depth_filter.update_seeds`).
+
+``make_track_step`` is the same step without the seed sweep (the tracking
+half): its ``step`` takes no ``seeds``/``px_error_angle``, the returned dict
+lacks ``seeds``, ``n_seeds_updated``, ``seed_match_px``, ``seed_matched`` and
+``kf_pack``, and ``packed[19]`` (seeds updated) is 0.  The whole step calls
+the tracking step, so the two give the same pose bit for bit.
 
 The map state enters as a *snapshot* dict of device tensors
-(:func:`hso_tpu_torch.utils.checkpoint.snapshot_from_numpy`).
+(:func:`hso_tpu_torch.utils.checkpoint.snapshot_from_numpy`); heavy members
+(``SNAP_HEAVY``: patch windows, positions, keyframe poses) change only at
+keyframe events, ``SNAP_LIGHT`` every frame.
 
-Host syncs per frame: one, the FC/IC choice (``bool(use_fc)``); it has to go
-before the step can be captured in a CUDA graph.  The plain versions of
-the kernels sync more (their loops test convergence on the host).
+Host syncs per frame with the kernels on the card: one, the FC/IC choice
+(``bool(use_fc)``); it has to go before the step can be captured in a CUDA
+graph.  The plain versions of the kernels sync more (their loops test
+convergence on the host).
 """
 
 from __future__ import annotations
@@ -23,11 +30,20 @@ import numpy as np
 import torch
 
 from hso_tpu_torch.image.pyramid import build_frame_pyramids
+from hso_tpu_torch.mapping.depth_filter import update_seeds
 from hso_tpu_torch.math import se3
 from hso_tpu_torch.math.robust import masked_median
 from hso_tpu_torch.track.coarse_tracker import make_coarse_tracker
 from hso_tpu_torch.track.matcher import match_points, select_candidates
 from hso_tpu_torch.track.pose_optimizer import optimize_pose
+
+#: snapshot keys that change only at keyframe events (heavy, kept on the device)
+SNAP_HEAVY = (
+    "pos_w", "kf_poses", "kf_exposure", "ring_T", "ring_exp",
+    "pt_pack", "species",
+)
+#: the per-frame snapshot member
+SNAP_LIGHT = ("light",)
 
 #: packed per-point patch-source row layout (snap["pt_pack"], (P, PT_COLS)
 #: float32): the flattened 24×24 window, then
@@ -45,12 +61,21 @@ def pack_light(pt_type: np.ndarray, pt_valid: np.ndarray) -> np.ndarray:
     return pt_type.astype(np.int32) + 8 * pt_valid.astype(np.int32)
 
 
+def scatter_rows(dst: torch.Tensor, idx: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
+    """Patch rows of a device-resident snapshot table: a new tensor equal to
+    ``dst`` with rows ``idx`` replaced by ``src`` (callers pad ``idx`` by
+    repeating a real row, so duplicates write the same value)."""
+    return dst.index_copy(0, idx.to(torch.int64), src.to(dst.dtype))
+
+
 def make_track_step(cam, grid: tuple, klt_max_level: int, klt_min_level: int,
                     coarse_n_iter: int, pattern_offset: int, poseoptim_thresh: float,
                     n_obs_pad: int = 0, edgelet_cos_angle: float = 0.86,
                     align_max_iter: int = 10, patch_closest: bool = False,
                     device="cuda"):
-    """Build the per-frame tracking step for a fixed camera/config.
+    """Build the per-frame tracking step (no seed sweep) for a fixed
+    camera/config: ``step(img, prev_pyr, prev_grad_mean, T_prev, prev_obs,
+    prev_intensity, exposure_prev, T_init_rel, snap, acc)``.
 
     ``n_obs_pad`` > C pads the returned ``obs_next`` arrays to a fixed slot
     count.  All tensor arguments of ``step`` live on ``device``; ``img`` may
@@ -304,5 +329,56 @@ def make_track_step(cam, grid: tuple, klt_max_level: int, klt_min_level: int,
             "distance_mean": distance_mean,
             "used_fc": use_fc,
         }
+
+    return step
+
+
+def make_frame_step(cam, grid: tuple, klt_max_level: int, klt_min_level: int,
+                    coarse_n_iter: int, pattern_offset: int, poseoptim_thresh: float,
+                    n_obs_pad: int = 0, edgelet_cos_angle: float = 0.86,
+                    align_max_iter: int = 10, patch_closest: bool = False,
+                    device="cuda"):
+    """Build the whole per-frame step for a fixed camera/config:
+    ``step(img, prev_pyr, prev_grad_mean, T_prev, prev_obs, prev_intensity,
+    exposure_prev, T_init_rel, snap, seeds, px_error_angle, acc)``.
+
+    The tracking step, then the depth-filter sweep of ``seeds`` (a table as
+    :func:`hso_tpu_torch.mapping.depth_filter.empty_seeds` lays it out)
+    against the new frame at the refined pose.  The dict gains ``seeds``,
+    ``n_seeds_updated``, ``seed_match_px``, ``seed_matched``, ``packed[19]``
+    and ``kf_pack``: slot results, lifecycle accumulators and seed match
+    statistics in ONE flat float32 buffer, laid out
+    ``[slot_pack (C·11) | acc (2P) | seed_match_px (2S) | seed_matched (S)]``
+    for a single device→host copy at keyframe events."""
+    track = make_track_step(cam, grid, klt_max_level, klt_min_level, coarse_n_iter,
+                            pattern_offset, poseoptim_thresh, n_obs_pad, edgelet_cos_angle,
+                            align_max_iter, patch_closest, device)
+
+    def step(img, prev_pyr, prev_grad_mean, T_prev, prev_obs, prev_intensity,
+             exposure_prev, T_init_rel, snap, seeds, px_error_angle, acc):
+        out = track(img, prev_pyr, prev_grad_mean, T_prev, prev_obs, prev_intensity,
+                    exposure_prev, T_init_rel, snap, acc)
+        data = out["data"]
+
+        # ---- 5. depth-filter observation sweep ----
+        seeds_new, sstats = update_seeds(
+            seeds, snap["ring_T"], snap["ring_exp"], data["pyr"], data["sobel_x"],
+            data["sobel_y"], out["T_new"], out["exposure"], px_error_angle, cam)
+
+        f32 = torch.float32
+        packed = out["packed"].clone()
+        packed[19] = sstats["n_updated"].to(f32)
+        out["packed"] = packed
+        out["kf_pack"] = torch.cat([
+            out["slot_pack"].reshape(-1),
+            out["acc"].reshape(-1).to(f32),
+            sstats["px_match"].reshape(-1),
+            sstats["matched"].to(f32),
+        ])
+        out["seeds"] = seeds_new
+        out["n_seeds_updated"] = sstats["n_updated"]
+        out["seed_match_px"] = sstats["px_match"]
+        out["seed_matched"] = sstats["matched"]
+        return out
 
     return step

@@ -185,3 +185,65 @@ def track_problem(cam, scene, T_cur, p_max: int = 512, grid_step: int = 12,
         ring_exp=np.ones(8, np.float32),
         obs_px=px[obs_ids], obs_f=f[obs_ids], obs_pid=obs_ids.astype(np.int32), n_obs=n_obs,
     )
+
+
+def epipolar_problem(level_shapes, s: int = 48, seed: int = 7, margin: float = 30.0):
+    """Epipolar segments on mixed pyramid levels: centres inside the image,
+    random directions and half-lengths up to 16 px.
+
+    Row 0 has its window clipped at the image corner, row 1 a zero-length
+    segment, row 2 is a dead slot.  Returns a dict of level (int32), center,
+    px_far, px_close (float32, level coordinates) and valid."""
+    rs = np.random.RandomState(seed)
+    n_levels = len(level_shapes)
+    level = rs.randint(0, n_levels, s).astype(np.int32)
+    center = np.empty((s, 2), np.float32)
+    for k in range(s):
+        h, w = level_shapes[level[k]]
+        center[k] = [rs.uniform(margin, w - margin), rs.uniform(margin, h - margin)]
+    center[0] = [6.0, 6.0]
+    theta = rs.uniform(0, 2 * np.pi, s)
+    d = np.stack([np.cos(theta), np.sin(theta)], -1).astype(np.float32)
+    half = rs.uniform(0.0, 16.0, s).astype(np.float32)
+    half[1] = 0.0
+    valid = np.ones(s, bool)
+    valid[2] = False
+    return dict(level=level, center=center, valid=valid,
+                px_far=(center - d * half[:, None]).astype(np.float32),
+                px_close=(center + d * half[:, None]).astype(np.float32))
+
+
+def line_score_cases(s: int = 24, ew: int = 48, n_steps: int = 40, seed: int = 0,
+                     img_hw=(240, 320)):
+    """Direct inputs of the ZMNCC line-score kernel on noise windows whose
+    template is a true 8×8 crop (a real correlation peak), with adversarial
+    rows (``s`` ≥ 5): 0 a low-contrast window, 1 a segment wholly outside the
+    window, 2 a segment ending exactly on the last map column, 3 a window
+    at the image corner (patches leave the image), 4 a zero direction.
+    Returns a dict of numpy arrays in the kernel's argument order."""
+    rs = np.random.RandomState(seed)
+    ow = ew - 7
+    h, w = img_hw
+    windows = rs.uniform(0, 255, (s, ew, ew)).astype(np.float32)
+    windows[0] = 100.0 + windows[0] * (30.0 / 255.0)
+    cy = rs.randint(0, ow, s)
+    cx = rs.randint(0, ow, s)
+    ref = np.stack([windows[k, cy[k]:cy[k] + 8, cx[k]:cx[k] + 8] for k in range(s)])
+    gain, offset = rs.uniform(0.5, 1.5, (s, 1, 1)), rs.uniform(-20, 20, (s, 1, 1))
+    ref = (ref * gain + offset).astype(np.float32)
+    theta = rs.uniform(0, 2 * np.pi, s)
+    du, dv = np.cos(theta).astype(np.float32), np.sin(theta).astype(np.float32)
+    n_line = rs.randint(4, n_steps, s).astype(np.int32)
+    k0 = rs.randint(0, 8, s)
+    su0 = (cx - du * k0).astype(np.float32)
+    sv0 = (cy - dv * k0).astype(np.float32)
+    au = rs.randint(0, w - ew, s).astype(np.int32)
+    av = rs.randint(0, h - ew, s).astype(np.int32)
+    su0[1], sv0[1], du[1], dv[1] = -60.0, 5.0, -1.0, 0.0
+    su0[2], sv0[2], du[2], dv[2], n_line[2] = float(ow - 1 - 10), 3.0, 1.0, 0.0, 10
+    au[3], av[3] = 0, 0
+    su0[3], sv0[3], du[3], dv[3] = 0.0, 0.0, 0.5, 0.5
+    du[4], dv[4] = 0.0, 0.0
+    return dict(windows=windows, ref_patch=ref, su0=su0, sv0=sv0, dir_u=du, dir_v=dv,
+                n_line=n_line, au=au, av=av, hs=np.full(s, h, np.int32),
+                ws=np.full(s, w, np.int32))

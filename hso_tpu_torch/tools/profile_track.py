@@ -1,15 +1,18 @@
-"""Where a tracked frame's time goes on the GPU.
+"""Where a frame's time goes on the GPU.
 
 Run from the repository root on a machine with one CUDA device:
 
-    python3 -m hso_tpu_torch.tools.profile_track [--frames 8] [--out FILE]
+    python3 -m hso_tpu_torch.tools.profile_track [--step frame|track|both]
+                                                 [--frames 8] [--out FILE]
 
-Tracks the same frames as ``chip_smoke.py`` (state resumed from
-``artifacts/bench_boot.npz``), warms up, then records ``--frames`` steps
-under ``torch.profiler`` and prints one JSON object: wall time per frame
+Runs the same frames as ``chip_smoke.py`` (state and seed table resumed from
+``artifacts/bench_boot.npz``) through the whole per-frame step
+(``make_frame_step``, the default), the tracking half (``make_track_step``)
+or both in turn; warms up, then records ``--frames`` steps under
+``torch.profiler`` and prints one JSON object per step: wall time per frame
 (host clock around a synchronised step), device-busy share (sum of device
 kernel time over wall time), device kernels launched per frame, the device
-time of the five hand-written kernels, and the ten heaviest device kernels.
+time of the six hand-written kernels, and the ten heaviest device kernels.
 If the profiler reports no device time the object says so and carries only
 the wall times.
 """
@@ -30,13 +33,64 @@ ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)
 sys.path.insert(0, ROOT)
 
 OWN_KERNELS = ("extract_windows_kernel", "pack_level_windows_kernel", "coarse_level_ic_kernel",
-               "align_match_kernel", "pose_lm_kernel")
+               "align_match_kernel", "pose_lm_kernel", "zmncc_line_kernel")
+
+
+def profile_step(cs, which: str, cam, cfg, device, args, card: str) -> dict:
+    whole = which == "frame"
+    step, _, _ = cs.build_step(cam, cfg, device, whole=whole)
+    state, book = cs.initial_state(cam, cfg, device)
+    frame_count = book["frame_count"]
+    n = args.warm + args.frames
+    scene = cs.bench_scene(cam)
+    frames = [scene.render(T) for T in cs.trajectory(frame_count + n)[frame_count:]]
+
+    for img in frames[:args.warm]:
+        state = cs.advance(state, cs.run_one(step, state, img, whole))
+    torch.cuda.synchronize(device)
+
+    wall_ms = []
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for img in frames[args.warm:]:
+            t0 = time.perf_counter()
+            out = cs.run_one(step, state, img, whole)
+            torch.cuda.synchronize(device)
+            wall_ms.append((time.perf_counter() - t0) * 1e3)
+            state = cs.advance(state, out)
+    rows = []
+    for e in prof.key_averages():
+        dev_us = getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
+        is_dev = str(getattr(e, "device_type", "")).endswith("CUDA")
+        if dev_us > 0 and is_dev:
+            rows.append((e.key, dev_us, e.count))
+    doc = {"step": which, "card": card, "frames": args.frames,
+           "wall_ms_per_frame_median": statistics.median(wall_ms),
+           "wall_ms_per_frame": wall_ms}
+    if not rows:
+        doc["device_time"] = "not measured: the profiler reported no device time"
+    else:
+        total_us = sum(r[1] for r in rows)
+        doc["device_busy_ms_per_frame"] = total_us / 1e3 / args.frames
+        doc["device_busy_share"] = total_us / 1e3 / sum(wall_ms)
+        doc["device_kernels_per_frame"] = sum(r[2] for r in rows) / args.frames
+        doc["own_kernels_ms_per_frame"] = {
+            k: sum(r[1] for r in rows if k in r[0]) / 1e3 / args.frames for k in OWN_KERNELS}
+        doc["own_kernels_calls_per_frame"] = {
+            k: sum(r[2] for r in rows if k in r[0]) / args.frames for k in OWN_KERNELS}
+        rows.sort(key=lambda r: -r[1])
+        doc["top_device_kernels"] = [
+            {"name": r[0][:90], "ms_per_frame": r[1] / 1e3 / args.frames,
+             "calls_per_frame": r[2] / args.frames} for r in rows[:10]]
+    return doc
 
 
 def main() -> int:
     import chip_smoke as cs
 
     ap = argparse.ArgumentParser()
+    ap.add_argument("--step", choices=("frame", "track", "both"), default="frame")
     ap.add_argument("--frames", type=int, default=8)
     ap.add_argument("--warm", type=int, default=4)
     ap.add_argument("--out", default="")
@@ -52,49 +106,9 @@ def main() -> int:
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0].strip()
 
     cam, cfg = cs.bench_camera(), cs.Config()
-    step, _, _ = cs.build_step(cam, cfg, device)
-    state, frame_count = cs.initial_state(cam, cfg, device)
-    n = args.warm + args.frames
-    scene = cs.bench_scene(cam)
-    frames = [scene.render(T) for T in cs.trajectory(frame_count + n)[frame_count:]]
-
-    for img in frames[:args.warm]:
-        state = cs.advance(state, cs.run_one(step, state, img))
-    torch.cuda.synchronize(device)
-
-    wall_ms = []
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for img in frames[args.warm:]:
-            t0 = time.perf_counter()
-            out = cs.run_one(step, state, img)
-            torch.cuda.synchronize(device)
-            wall_ms.append((time.perf_counter() - t0) * 1e3)
-            state = cs.advance(state, out)
-    rows = []
-    for e in prof.key_averages():
-        dev_us = getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
-        is_dev = str(getattr(e, "device_type", "")).endswith("CUDA")
-        if dev_us > 0 and is_dev:
-            rows.append((e.key, dev_us, e.count))
-    doc = {"card": card, "frames": args.frames,
-           "wall_ms_per_frame_median": statistics.median(wall_ms),
-           "wall_ms_per_frame": wall_ms}
-    if not rows:
-        doc["device_time"] = "not measured: the profiler reported no device time"
-    else:
-        total_us = sum(r[1] for r in rows)
-        doc["device_busy_ms_per_frame"] = total_us / 1e3 / args.frames
-        doc["device_busy_share"] = total_us / 1e3 / sum(wall_ms)
-        doc["device_kernels_per_frame"] = sum(r[2] for r in rows) / args.frames
-        doc["own_kernels_ms_per_frame"] = {
-            k: sum(r[1] for r in rows if k in r[0]) / 1e3 / args.frames for k in OWN_KERNELS}
-        rows.sort(key=lambda r: -r[1])
-        doc["top_device_kernels"] = [
-            {"name": r[0][:90], "ms_per_frame": r[1] / 1e3 / args.frames,
-             "calls_per_frame": r[2] / args.frames} for r in rows[:10]]
-    text = json.dumps(doc)
+    steps = ("track", "frame") if args.step == "both" else (args.step,)
+    text = "\n".join(json.dumps(profile_step(cs, which, cam, cfg, device, args, card))
+                     for which in steps)
     print(text, flush=True)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

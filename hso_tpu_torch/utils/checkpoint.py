@@ -1,5 +1,5 @@
-"""Map state carried into the tracking step: snapshots from numpy arrays and
-from a saved checkpoint.
+"""Map and seed state carried into the per-frame step: snapshots and seed
+tables from numpy arrays and from a saved checkpoint.
 
 The checkpoint is the JAX package's plain ``.npz`` (point table, keyframe
 poses and observation tables, seed state, pipeline counters, the last
@@ -8,9 +8,12 @@ keyframe's pyramid); it is read here with numpy alone.
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
+from hso_tpu_torch.mapping.depth_filter import empty_seeds
 from hso_tpu_torch.math import se3np
 from hso_tpu_torch.pipeline.fused_step import pack_light
 
@@ -40,6 +43,28 @@ def prev_obs_from_numpy(obs: dict, device="cuda") -> dict:
         "pid": torch.as_tensor(np.asarray(obs["pid"], np.int32), device=dev),
         "valid": torch.as_tensor(np.asarray(obs["valid"], bool), device=dev),
     }
+
+
+def seeds_from_numpy(d: dict, device="cuda") -> dict:
+    """The step's seed table as tensors on ``device``, with the members and
+    types of :func:`~hso_tpu_torch.mapping.depth_filter.empty_seeds` (bool,
+    int32, float32).  ``d`` must hold every member; keys that are not members
+    of the table (a loader's ``ring``, say) are not taken."""
+    dev = torch.device(device)
+    n = np.asarray(d["valid"]).shape[0]
+    out = {}
+    for k, proto in empty_seeds(n, "cpu").items():
+        a = np.ascontiguousarray(d[k])
+        if a.shape != tuple(proto.shape):
+            raise ValueError(f"seed member {k!r}: expected shape {tuple(proto.shape)}, "
+                             f"got {a.shape}")
+        out[k] = torch.as_tensor(a).to(proto.dtype).to(dev).contiguous()
+    return out
+
+
+def seeds_to_numpy(seeds: dict) -> dict:
+    """The seed table as numpy arrays (bool, int32, float32)."""
+    return {k: v.detach().cpu().numpy() for k, v in seeds.items()}
 
 
 def point_positions(host_kf, host_f, idist, kf_poses) -> np.ndarray:
@@ -116,3 +141,23 @@ def track_state_from_checkpoint(path: str, cam, cfg, device="cuda"):
     T_prev = torch.as_tensor(z[f"kf{last}_T"].astype(np.float32), device=dev)
     return (snap, tuple(pyr), grad_mean, intensity_mean, exposure, T_prev, prev_obs,
             int(z["frame_count"]))
+
+
+def frame_state_from_checkpoint(path: str, cam, cfg, device="cuda"):
+    """Everything the whole per-frame step needs to continue from a
+    checkpoint: what :func:`track_state_from_checkpoint` returns, then the
+    depth filter's state.
+
+    Returns ``(snap, prev_pyr, prev_grad_mean, prev_intensity, exposure_prev,
+    T_prev, prev_obs, frame_count, seeds, seed_ring, batch_counter,
+    px_error_angle)``: ``seeds`` is the seed table on ``device``,
+    ``seed_ring`` (numpy int32) maps each host ring slot to its keyframe
+    index (-1: free), ``batch_counter`` counts keyframe seed batches, and
+    ``px_error_angle`` is the bearing angle of a one-pixel error."""
+    track = track_state_from_checkpoint(path, cam, cfg, device)
+    z = np.load(path, allow_pickle=False)
+    seeds = seeds_from_numpy({k[len("seed_"):]: z[k] for k in z.files
+                              if k.startswith("seed_")}, device)
+    px_error_angle = float(math.atan(1.0 / (2.0 * cam.focal_mean)) * 2.0)
+    return track + (seeds, z["seed_ring"].astype(np.int32), int(z["batch_counter"]),
+                    px_error_angle)

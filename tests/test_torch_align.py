@@ -209,3 +209,61 @@ def test_match_points_end_to_end(scene):
     np.testing.assert_allclose(out["px"].numpy(), ref["px"], atol=1e-2)
     np.testing.assert_allclose(out["f_cur"].numpy(), ref["f_cur"], atol=1e-4)
     np.testing.assert_allclose(out["grad_cur"].numpy(), ref["grad_cur"], atol=1e-5)
+
+
+def _split_rows(pb, edge):
+    """The problem's rows of one kind (all corners or all edgelets)."""
+    rows = np.nonzero(pb["is_edge"] == edge)[0]
+    return {k: (v[rows] if isinstance(v, np.ndarray) and v.shape[:1] == pb["is_edge"].shape
+                else v) for k, v in pb.items()}
+
+
+@pytest.mark.parametrize("kind", ["2d", "1d"])
+def test_align2d_align1d_match_jax(problem, kind):
+    """The split alignments on prebuilt windows: px 5e-3, converged exact,
+    chi2 1 %, mean_diff 5e-3, ``h_inv`` 1e-4 relative."""
+    from hso_tpu.ops.align import align1d as jax_align1d, align2d as jax_align2d
+    from hso_tpu_torch.ops.align import align1d, align2d
+
+    pb = _split_rows(problem, kind == "1d")
+    j = jnp.asarray
+    kw_j = dict(n_iter=10, valid=j(pb["valid"]), windows=j(pb["windows"]),
+                anchors=(j(pb["au"]), j(pb["av"])), img_hw=(j(pb["hs"]), j(pb["ws"])))
+    kw_t = dict(n_iter=10, valid=t(pb["valid"]), windows=t(pb["windows"]),
+                anchors=(t(pb["au"]), t(pb["av"])), img_hw=(t(pb["hs"]), t(pb["ws"])))
+    if kind == "2d":
+        ref = jax_align2d(None, j(pb["ref_border"]), j(pb["px_init"]), **kw_j)
+        got = align2d(None, t(pb["ref_border"]), t(pb["px_init"]), **kw_t)
+    else:
+        ref = jax_align1d(None, j(pb["direction"]), j(pb["ref_border"]), j(pb["px_init"]), **kw_j)
+        got = align1d(None, t(pb["direction"]), t(pb["ref_border"]), t(pb["px_init"]), **kw_t)
+    ref = jax.tree.map(np.asarray, ref)
+    got = {k: v.numpy() for k, v in got.items()}
+    assert set(got) == set(ref)
+    conv = ref["converged"]
+    assert conv.sum() >= 0.5 * len(conv)
+    np.testing.assert_array_equal(got["converged"], conv)
+    np.testing.assert_allclose(got["px"], ref["px"], atol=5e-3)
+    np.testing.assert_allclose(got["chi2"][conv], ref["chi2"][conv], rtol=1e-2, atol=1e-2)
+    np.testing.assert_allclose(got["mean_diff"][conv], ref["mean_diff"][conv], atol=5e-3)
+    np.testing.assert_allclose(got["cur_patch"][conv], ref["cur_patch"][conv], atol=5e-2)
+    if kind == "1d":
+        np.testing.assert_allclose(got["h_inv"], ref["h_inv"], rtol=1e-4)
+
+
+def test_align2d_cuts_its_own_windows(pyr, problem):
+    """Given the search image instead of prebuilt windows, ``align2d`` cuts
+    24-px windows around the initial estimates, as the JAX function does."""
+    from hso_tpu.ops.align import align2d as jax_align2d
+    from hso_tpu_torch.ops.align import align2d
+
+    rows = np.nonzero((problem["level"] == 0) & ~problem["is_edge"])[0]
+    ref = jax.tree.map(np.asarray, jax_align2d(
+        jnp.asarray(pyr[0]), jnp.asarray(problem["ref_border"][rows]),
+        jnp.asarray(problem["px_init"][rows]), n_iter=10,
+        valid=jnp.asarray(problem["valid"][rows])))
+    got = align2d(t(pyr[0]), t(problem["ref_border"][rows]), t(problem["px_init"][rows]),
+                  n_iter=10, valid=t(problem["valid"][rows]))
+    assert len(rows) > 5 and ref["converged"].sum() > 3
+    np.testing.assert_array_equal(got["converged"].numpy(), ref["converged"])
+    np.testing.assert_allclose(got["px"].numpy(), ref["px"], atol=5e-3)

@@ -58,3 +58,74 @@ def test_accepts_tensor_input():
     b = build_frame_pyramids(torch.as_tensor(img), device="cpu")
     for x, y in zip(a["pyr"], b["pyr"]):
         assert torch.equal(x, y)
+
+
+def _coords(h, w, n, seed):
+    """Sub-pixel coordinates: inside, on integers, and past every border."""
+    rs = np.random.RandomState(seed)
+    u = rs.uniform(-3.0, w + 2.0, n).astype(np.float32)
+    v = rs.uniform(-3.0, h + 2.0, n).astype(np.float32)
+    u[:4] = [0.0, w - 1.0, 5.0, w - 1.5]
+    v[:4] = [0.0, h - 1.0, 7.0, h - 1.0]
+    return u, v
+
+
+def test_interp_bilinear_and_grad():
+    """Clamped 4-tap reads: 1e-4 on 0–255 images (same taps, same weights;
+    the products are summed in another order)."""
+    from hso_tpu.image import interp as j_interp
+    from hso_tpu_torch.image import interp as t_interp
+
+    img = _image(60, 80, seed=3).astype(np.float32)
+    u, v = _coords(60, 80, 200, seed=4)
+    t = torch.as_tensor
+    np.testing.assert_allclose(
+        t_interp.bilinear(t(img), t(u), t(v)).numpy(),
+        np.asarray(j_interp.bilinear(jnp.asarray(img), jnp.asarray(u), jnp.asarray(v))),
+        atol=1e-4)
+    got = t_interp.bilinear_with_grad(t(img), t(u), t(v))
+    ref = j_interp.bilinear_with_grad(jnp.asarray(img), jnp.asarray(u), jnp.asarray(v))
+    for a, b in zip(got, ref):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-4)
+    # an integer coordinate reads the pixel itself
+    assert float(t_interp.bilinear(t(img), t(u[2:3]), t(v[2:3]))) == img[7, 5]
+
+
+def test_interp_patch_values():
+    from hso_tpu.image import interp as j_interp
+    from hso_tpu_torch.image import interp as t_interp
+    from hso_tpu_torch.ops.patterns import PATTERNS
+
+    img = _image(60, 80, seed=5).astype(np.float32)
+    u0, v0 = _coords(60, 80, 40, seed=6)
+    off = np.asarray(PATTERNS[2], np.int32)
+    t = torch.as_tensor
+    got = t_interp.patch_values(t(img), t(u0), t(v0), t(off))
+    ref = j_interp.patch_values(jnp.asarray(img), jnp.asarray(u0), jnp.asarray(v0),
+                                jnp.asarray(off))
+    assert tuple(got.shape) == ref.shape == (40, len(off))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-4)
+    got3 = t_interp.patch_values_with_grad(t(img), t(u0), t(v0), t(off))
+    ref3 = j_interp.patch_values_with_grad(jnp.asarray(img), jnp.asarray(u0), jnp.asarray(v0),
+                                           jnp.asarray(off))
+    for a, b in zip(got3, ref3):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-4)
+
+
+def test_remap_bilinear_undistorts_like_jax():
+    from hso_tpu.cameras import PinholeCamera as JaxPinhole
+    from hso_tpu.image.pyramid import remap_bilinear as jax_remap
+    from hso_tpu_torch.cameras import PinholeCamera
+    from hso_tpu_torch.image.pyramid import remap_bilinear
+
+    dist = (-0.28, 0.07, 2e-4, 1e-5, 0.0)
+    cam = PinholeCamera(80, 60, 60.0, 61.0, 40.0, 30.0, *dist, undistort_image=True)
+    cam_j = JaxPinhole(80, 60, 60.0, 61.0, 40.0, 30.0, *dist, undistort_image=True)
+    mx, my = cam.undistort_remap()
+    for a, b in zip((mx, my), cam_j.undistort_remap()):
+        np.testing.assert_allclose(a, b, atol=1e-5)
+    img = _image(60, 80, seed=7)
+    got = remap_bilinear(torch.as_tensor(img), torch.as_tensor(mx), torch.as_tensor(my))
+    ref = jax_remap(jnp.asarray(img), jnp.asarray(mx), jnp.asarray(my))
+    assert got.dtype == torch.float32 and tuple(got.shape) == (60, 80)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-4)

@@ -22,7 +22,10 @@ def test_module_list_is_complete():
     for name in ("hso_tpu_torch._cuda_build", "hso_tpu_torch.ops.window_cuda",
                  "hso_tpu_torch.ops.align_cuda", "hso_tpu_torch.track.coarse_cuda",
                  "hso_tpu_torch.track.pose_cuda", "hso_tpu_torch.pipeline.fused_step",
-                 "hso_tpu_torch.utils.checkpoint", "hso_tpu_torch.testing"):
+                 "hso_tpu_torch.utils.checkpoint", "hso_tpu_torch.testing",
+                 "hso_tpu_torch.ops.epipolar", "hso_tpu_torch.ops.epipolar_cuda",
+                 "hso_tpu_torch.mapping", "hso_tpu_torch.mapping.depth_filter",
+                 "hso_tpu_torch.image.interp", "hso_tpu_torch.tools.profile_track"):
         assert name in MODULES
 
 
@@ -62,7 +65,14 @@ def test_sources_name_neither_jax_nor_the_jax_package():
 def test_kernel_sources_are_in_the_package():
     from hso_tpu_torch import _cuda_build
 
-    assert _cuda_build._sources() == ["align.cu", "coarse.cu", "pose.cu", "window.cu"]
+    assert _cuda_build._sources() == ["align.cu", "coarse.cu", "epipolar.cu", "pose.cu",
+                                      "window.cu"]
+    assert "hso_zmncc_line_scores" in _cuda_build._SIGNATURES
+    with open(os.path.join(_cuda_build.CSRC_DIR, "epipolar.cu")) as fh:
+        src = fh.read()
+    assert 'extern "C" int hso_zmncc_line_scores(' in src and "atomic" not in src.lower().replace(
+        "no atomics", "")
+    assert "arch=compute_90a,code=sm_90a" in _cuda_build.NVCC_FLAGS
     assert all(len(sig) >= 9 for sig in _cuda_build._SIGNATURES.values())
     h1 = _cuda_build._source_hash()
     assert h1 == _cuda_build._source_hash() and len(h1) == 16

@@ -146,3 +146,92 @@ def test_camera_round_trip(dist):
                                   np.asarray(cj.is_in_frame(jnp.asarray(px), border=8)))
     # numpy in, numpy out (host bookkeeping, scene rendering)
     assert isinstance(ct.cam2world(px.astype(np.float64)), np.ndarray)
+
+
+@pytest.mark.parametrize("n_valid", [0, 1, 6, 7, 200])
+def test_masked_median_bisect(n_valid):
+    """Bisection converges to the upper median within (max − min) / 2^30; a
+    non-finite entry under the mask is left out on both sides."""
+    rs = np.random.RandomState(10 + n_valid)
+    n = 256
+    v = rs.normal(scale=3.0, size=n).astype(np.float32)
+    m = np.zeros(n, bool)
+    m[rs.permutation(n)[:n_valid]] = True
+    if n_valid >= 6:
+        v[np.nonzero(m)[0][0]] = np.inf
+    got = float(t_robust.masked_median_bisect(_t(v), _t(m)))
+    ref = float(j_robust.masked_median_bisect(jnp.asarray(v), jnp.asarray(m)))
+    np.testing.assert_allclose(got, ref, atol=1e-6)
+    live = v[m & np.isfinite(v)]
+    if len(live):
+        np.testing.assert_allclose(got, np.sort(live)[len(live) // 2], atol=1e-5)
+    else:
+        assert got == 0.0
+
+
+def test_tukey_weight():
+    x = np.linspace(-8.0, 8.0, 101).astype(np.float32)
+    got = t_robust.tukey_weight(_t(x)).numpy()
+    np.testing.assert_allclose(got, np.asarray(j_robust.tukey_weight(jnp.asarray(x))), atol=1e-7)
+    assert got[50] == 1.0 and got[0] == 0.0 and got[-1] == 0.0
+
+
+def _fov_pair(undistort_image):
+    from hso_tpu.cameras import FOVCamera as JaxFOV
+    from hso_tpu_torch.cameras import FOVCamera
+
+    args = (640, 480, 0.535719308086809, 0.669566858850269, 0.493248545285398,
+            0.500408664348414, 0.897966326944875)
+    return (JaxFOV(*args, undistort_image=undistort_image),
+            FOVCamera(*args, undistort_image=undistort_image))
+
+
+@pytest.mark.parametrize("undistort_image", [False, True])
+def test_fov_camera(undistort_image):
+    """ATAN model with normalised intrinsics: the per-point warp when live,
+    the ideal pinhole over rectified images otherwise."""
+    cj, ct = _fov_pair(undistort_image)
+    assert (ct.fx, ct.fy, ct.cx, ct.cy) == (cj.fx, cj.fy, cj.cx, cj.cy)
+    assert ct.has_distortion == cj.has_distortion == (not undistort_image)
+    rs = np.random.RandomState(9)
+    px = np.stack([rs.uniform(0, 640, 64), rs.uniform(0, 480, 64)], -1).astype(np.float32)
+    px[0] = [ct.cx, ct.cy]                         # the centre: r = 0 guard
+    f_j = np.asarray(cj.cam2world(jnp.asarray(px)))
+    f_t = ct.cam2world(_t(px))
+    np.testing.assert_allclose(f_t.numpy(), f_j, atol=1e-6)
+    back = ct.world2cam(f_t * 2.0).numpy()
+    np.testing.assert_allclose(back, np.asarray(cj.world2cam(jnp.asarray(f_j) * 2.0)), atol=1e-3)
+    np.testing.assert_allclose(back, px, atol=1e-2)
+    # numpy in, numpy out, float64
+    f_np = ct.cam2world(px.astype(np.float64))
+    assert isinstance(f_np, np.ndarray)
+    np.testing.assert_allclose(f_np, cj.cam2world(px.astype(np.float64)), atol=1e-12)
+    for a, b in zip(ct.undistort_remap(), cj.undistort_remap()):
+        assert a.dtype == np.float32 and a.shape == (480, 640)
+        np.testing.assert_allclose(a, b, atol=1e-4)
+    ideal = ct.ideal()
+    assert (ideal.fx, ideal.cy) == (ct.fx, ct.cy)
+    np.testing.assert_allclose(ideal.cam2world(px), cj.ideal().cam2world(px), atol=1e-7)
+
+
+def test_equidistant_camera():
+    from hso_tpu.cameras import EquidistantCamera as JaxEqui
+    from hso_tpu_torch.cameras import EquidistantCamera
+
+    args = (752, 480, 461.6, 460.3, 363.0, 248.1, -0.0027, 0.0244, -0.0433, 0.0207)
+    cj, ct = JaxEqui(*args), EquidistantCamera(*args)
+    assert ct.undistort_image and not ct.has_distortion and ct.k == cj.k
+    for a, b in zip(ct.undistort_remap(), cj.undistort_remap()):
+        assert a.dtype == np.float32 and a.shape == (480, 752)
+        np.testing.assert_allclose(a, b, atol=1e-4)
+    rs = np.random.RandomState(3)
+    xy = rs.uniform(-1.0, 1.0, (2, 50)).astype(np.float32)
+    xy[:, 0] = 0.0                                 # r = 0 guard
+    got = ct._equi_distort(_t(xy[0]), _t(xy[1]))
+    ref = cj._equi_distort(jnp.asarray(xy[0]), jnp.asarray(xy[1]))
+    for a, b in zip(got, ref):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-6)
+    # points are ideal pinhole after the remap
+    px = np.array([[100.0, 50.0], [363.0, 248.1]], np.float32)
+    np.testing.assert_allclose(ct.cam2world(_t(px)).numpy(),
+                               np.asarray(cj.cam2world(jnp.asarray(px))), atol=1e-6)

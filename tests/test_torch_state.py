@@ -16,8 +16,10 @@ from hso_tpu_torch.cameras import PinholeCamera
 from hso_tpu_torch.config import Config
 from hso_tpu_torch.math import se3np
 from hso_tpu_torch.utils import synthetic
-from hso_tpu_torch.utils.checkpoint import (prev_obs_from_numpy, snapshot_from_numpy,
-                                            track_state_from_checkpoint)
+from hso_tpu_torch.mapping.depth_filter import empty_seeds
+from hso_tpu_torch.utils.checkpoint import (frame_state_from_checkpoint, prev_obs_from_numpy,
+                                            seeds_from_numpy, seeds_to_numpy,
+                                            snapshot_from_numpy, track_state_from_checkpoint)
 from hso_tpu_torch.utils.evaluate import ate, umeyama
 
 torch.set_num_threads(1)
@@ -58,6 +60,64 @@ def test_track_state_from_checkpoint_matches_jax_chain(patch_source):
                                                 last.exposure)
     np.testing.assert_array_equal(T_prev.numpy(), last.T_f_w.astype(np.float32))
     assert frame_count == vo.frame_count == 55
+
+
+def test_frame_state_from_checkpoint_matches_jax_loader():
+    """The seed table and the depth filter's bookkeeping against the JAX
+    loader's; the tracking members are ``track_state_from_checkpoint``'s."""
+    from hso_tpu.pipeline.frame_handler import FrameHandler
+    from hso_tpu.utils.checkpoint import load_checkpoint
+
+    vo = FrameHandler(JaxPinhole(640, 480, 400.0, 400.0, 320.0, 240.0), JaxConfig())
+    load_checkpoint(vo, BOOT_NPZ, resume_stage="default")
+    ref_seeds = {k: np.asarray(v) for k, v in vo.seeds.items()}
+
+    cam = PinholeCamera(640, 480, 400.0, 400.0, 320.0, 240.0)
+    state = frame_state_from_checkpoint(BOOT_NPZ, cam, Config(), device="cpu")
+    track = track_state_from_checkpoint(BOOT_NPZ, cam, Config(), device="cpu")
+    assert len(state) == len(track) + 4
+    for a, b in zip(state[1], track[1]):
+        assert torch.equal(a, b)
+    assert torch.equal(state[5], track[5]) and state[7] == track[7] == 55
+    for k in track[0]:
+        assert torch.equal(state[0][k], track[0][k]), k
+    seeds, seed_ring, batch_counter, px_error_angle = state[8:]
+    # the JAX loader takes every ``seed_*`` key, so ``seed_ring`` lands in its
+    # seed dict as "ring"; the port's table has the members of empty_seeds only
+    assert set(ref_seeds) - set(seeds) == {"ring"} and "ring" not in seeds
+    proto = empty_seeds(1024, "cpu")
+    assert set(seeds) == set(proto)
+    for k, v in seeds.items():
+        assert v.dtype == proto[k].dtype and v.shape == proto[k].shape, k
+        assert v.numpy().dtype == ref_seeds[k].dtype, k
+        np.testing.assert_array_equal(v.numpy(), ref_seeds[k], err_msg=k)
+    assert int(seeds["valid"].sum()) == 151
+    np.testing.assert_array_equal(seed_ring, vo.seed_ring)
+    assert seed_ring.dtype == np.int32 and list(seed_ring) == [-1, 1, 2, 3, 4, 5, -1, -1]
+    assert batch_counter == vo.batch_counter == 5
+    assert px_error_angle == vo.px_error_angle
+
+
+def test_seed_table_round_trip():
+    z = np.load(BOOT_NPZ, allow_pickle=False)
+    d = {k[len("seed_"):]: z[k] for k in z.files if k.startswith("seed_")}
+    assert "ring" in d
+    seeds = seeds_from_numpy(d, "cpu")
+    back = seeds_to_numpy(seeds)
+    assert "ring" not in back and set(back) == set(d) - {"ring"}
+    for k, v in back.items():
+        assert v.dtype == d[k].dtype, k
+        np.testing.assert_array_equal(v, d[k], err_msg=k)
+    # types are forced to the table's own, whatever the arrays arrive as
+    d64 = {k: (v.astype(np.float64) if v.dtype == np.float32 else v.astype(np.int64)
+               if v.dtype == np.int32 else v) for k, v in d.items()}
+    again = seeds_from_numpy(d64, "cpu")
+    for k, v in again.items():
+        assert v.dtype == seeds[k].dtype and torch.equal(v, seeds[k]), k
+    with pytest.raises(KeyError):
+        seeds_from_numpy({k: v for k, v in d.items() if k != "mu"}, "cpu")
+    with pytest.raises(ValueError):
+        seeds_from_numpy(dict(d, mu=d["mu"][:10]), "cpu")
 
 
 def test_snapshot_from_numpy_types_and_unknown_key():

@@ -132,3 +132,55 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         window_cuda.extract_windows_cuda(img, a, a, 24)
     with pytest.raises(ValueError):
         window_cuda.pack_level_windows_cuda([img], a, a, a, 24, 1)
+
+
+@pytest.mark.parametrize("win", [24, 44])
+def test_memoize_level_windows(pyr, win):
+    """Host windows cut once from each row's own level (24 px for the point
+    table, 44 px for the seed table); the packed form is the same data in one
+    buffer."""
+    from hso_tpu.ops.warp import (memoize_level_windows as jax_memoize,
+                                  memoize_level_windows_packed as jax_memoize_packed)
+    from hso_tpu_torch.ops.warp import memoize_level_windows, memoize_level_windows_packed
+
+    rs = np.random.RandomState(6)
+    n = 50
+    px = np.stack([rs.uniform(-4, 324, n), rs.uniform(-4, 244, n)], -1).astype(np.float32)
+    px[:4] = [[0, 0], [319, 239], [0, 239], [319, 0]]
+    level = rs.randint(0, 3, n).astype(np.int32)
+    pyr_j = tuple(jnp.asarray(p) for p in pyr)
+    pyr_t = tuple(torch.as_tensor(p) for p in pyr)
+    w_ref, a_ref = jax_memoize(pyr_j, jnp.asarray(px), jnp.asarray(level), win=win)
+    w, a = memoize_level_windows(pyr_t, torch.as_tensor(px), torch.as_tensor(level), win=win)
+    assert a.dtype == torch.int32 and tuple(w.shape) == (n, win, win)
+    np.testing.assert_array_equal(a.numpy(), np.asarray(a_ref))
+    np.testing.assert_allclose(w.numpy(), np.asarray(w_ref), atol=1e-6)
+    packed = memoize_level_windows_packed(pyr_t, torch.as_tensor(px), torch.as_tensor(level),
+                                          win=win)
+    ref_packed = jax_memoize_packed(pyr_j, jnp.asarray(px), jnp.asarray(level), win=win)
+    assert tuple(packed.shape) == ref_packed.shape == (n, win * win + 2)
+    np.testing.assert_allclose(packed.numpy(), np.asarray(ref_packed), atol=1e-6)
+
+
+def test_sample_points(pyr):
+    """Single-point reads of a whole (non-square) image; outside reads 0 and
+    fades over one pixel at the border.  1e-3 on 0–255 values: the JAX side
+    sums each point's two-tap row of a dense matrix product."""
+    from hso_tpu.ops.gatherless import sample_points as jax_sample_points
+
+    img = pyr[1]
+    h, w = img.shape
+    rs = np.random.RandomState(8)
+    u = rs.uniform(-3.0, w + 2.0, 120).astype(np.float32)
+    v = rs.uniform(-3.0, h + 2.0, 120).astype(np.float32)
+    u[:5] = [0.0, w - 1.0, -0.5, w - 0.5, 10.0]
+    v[:5] = [0.0, h - 1.0, 3.0, h - 0.5, 11.0]
+    got = gatherless.sample_points(torch.as_tensor(img), torch.as_tensor(u), torch.as_tensor(v))
+    ref = jax_sample_points(jnp.asarray(img), jnp.asarray(u), jnp.asarray(v))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-3)
+    assert float(got[4]) == img[11, 10] and float(got[0]) == img[0, 0]
+    outside = (u < -1) | (u > w) | (v < -1) | (v > h)
+    assert outside.sum() > 3 and np.all(got.numpy()[outside] == 0.0)
+    nan = gatherless.sample_points(torch.as_tensor(img), torch.tensor([float("nan")]),
+                                   torch.tensor([2.0]))
+    assert float(nan) == 0.0
