@@ -14,15 +14,22 @@ life (``init_seeds``, sweeps, ``harvest_and_prune``) is run on the card and
 on the CPU from the same state.  Needs one CUDA device; exits non-zero
 without one.  Imports nothing of JAX.
 
-Phases (one JSON line each): ``device``, ``build``, ``kernels`` (one line per
-kernel and shape), ``track``, ``frame``, ``seeds``; then the
-``{"kernels": [...]}`` summary, the card line and, last, the
+Phases (one JSON line each): ``device``, ``build`` (with the registers, spills
+and static shared memory of the two LM kernels), ``kernels`` (one line per
+kernel and shape; K3 at each of its four levels and in its variant that leaves
+the windows in global memory), ``latency`` (the card's own figures for a block
+barrier, a cluster barrier, the reductions and the scalar steps of K3 and K5,
+and the latency floor they give), ``track``, ``frame``, ``fc_frame`` (one frame
+forced through the forward-compositional branch, card against CPU), ``seeds``;
+then the ``{"kernels": [...]}`` summary, the card line and, last, the
 ``{"ok": true, "device": {...}}`` line.  Any failed check raises.
 """
 
 from __future__ import annotations
 
 import contextlib
+import ctypes
+import io
 import json
 import os
 import statistics
@@ -186,8 +193,8 @@ class Recorder:
 
 
 class Tally:
-    """Wraps a dispatcher at a call site: counts its calls by window edge,
-    then calls it."""
+    """Wraps a dispatcher at a call site: counts its calls by window edge (or
+    whatever ``win_of`` reads from the call), then calls it."""
 
     def __init__(self, fn, win_of):
         self.fn = fn
@@ -231,19 +238,23 @@ def plain_kernels():
 
 
 def shape_tallies():
-    """Counting shims on the call sites of the kernels that run at two window
-    edges: returns (the patch context, {kernel: Tally})."""
+    """Counting shims on the call sites of the kernels that run at more than
+    one shape (by window edge; K3 by the level's image height): returns (the
+    patch context, {kernel: Tally})."""
     from hso_tpu_torch.track import coarse_tracker, matcher
 
     k1 = Tally(window_cuda.extract_windows, lambda a, k: a[3])
     k2 = Tally(window_cuda.pack_level_windows_gather, lambda a, k: a[4])
     k4 = Tally(align_cuda.align_match, lambda a, k: k["win"])
+    k3 = Tally(coarse_cuda.coarse_level_ic, lambda a, k: k["h_img"])
     ctx = patched([(coarse_tracker, "extract_windows", k1),
+                   (coarse_tracker, "coarse_level_ic", k3),
                    (depth_filter, "extract_windows", k1),
                    (epipolar, "pack_level_windows_gather", k2),
                    (matcher, "align_match", k4),
                    (depth_filter, "align_match", k4)])
-    return ctx, {"extract_windows": k1, "pack_level_windows": k2, "align_match": k4}
+    return ctx, {"extract_windows": k1, "pack_level_windows": k2, "align_match": k4,
+                 "coarse_level_ic": k3}
 
 
 def capture_kernel_inputs(step, state, img):
@@ -361,53 +372,119 @@ def check_windows(cur_pyr, device, results):
         bound_ms=b_ms, bound_by=b_by)
 
 
+def same_bits(a, b) -> bool:
+    """Two results (float or integer tensors) hold the same bits."""
+    a, b = torch.as_tensor(a).float(), torch.as_tensor(b).float()
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def compare_coarse(got, ref, what):
+    """A coarse level's kernel result against the plain one, tolerances of
+    ``tests/test_torch_coarse.py``; returns the largest entry difference."""
+    d_T = se3_dist(got[0], ref[0])
+    d_a = abs(float(got[1]) - float(ref[1]))
+    e_k, e_p = float(got[2]), float(ref[2])
+    assert d_T < 1e-3 and d_a < 1e-3, f"{what} disagrees: dT={d_T} da={d_a}"
+    assert abs(e_k - e_p) <= 0.05 * abs(e_p) + 1e-6, f"{what}: energy {e_k} vs {e_p}"
+    assert int(got[3]) == int(ref[3]), f"{what}: n_terms {int(got[3])} vs {int(ref[3])}"
+    return max(float((got[0] - ref[0]).abs().max()), d_a)
+
+
+def tiled_coarse_call(args, kw, n):
+    """A recorded coarse level repeated along the feature axis up to ``n``
+    features: a shape whose windows do not fit the cluster's shared memory."""
+    n_rec = args[1].shape[0]
+    idx = torch.arange(n, device=args[0].device) % n_rec
+    return tuple(a[idx].contiguous() for a in args[:7]) + tuple(args[7:]), kw
+
+
+def c_launch_plan(n: int, p: int) -> tuple:
+    """The launch plan as the library computes it (cluster, threads, resident,
+    bytes)."""
+    out4 = (ctypes.c_int * 4)()
+    rc = _cuda_build.lib().hso_coarse_launch_plan(n, p, ctypes.byref(out4))
+    assert rc == 0, f"the library has no launch plan for N={n} P={p}"
+    return out4[0], out4[1], bool(out4[2]), out4[3]
+
+
 def check_coarse(calls, device, results):
     assert len(calls) == 4, f"expected 4 coarse levels on an IC frame, got {len(calls)}"
-    worst = 0.0
-    per_level = []
-    for args, kw in calls:
+    heights = [kw["h_img"] for _, kw in calls]
+    assert heights == [30, 60, 120, 240], f"coarse levels out of order: {heights}"
+    for level, (args, kw) in zip((4, 3, 2, 1), calls):
+        n, p = args[1].shape
+        plan = coarse_cuda.coarse_launch_plan(n, p)
+        assert plan == c_launch_plan(n, p), f"launch plans differ: {plan} {c_launch_plan(n, p)}"
+        assert plan[2], f"level {level}: the windows of N={n} P={p} should be resident"
         got = coarse_cuda.coarse_level_ic_cuda(*args, **kw)
         ref = coarse_cuda.coarse_level_ic_plain(*args, **kw)
-        d_T = se3_dist(got[0], ref[0])
-        d_a = abs(float(got[1]) - float(ref[1]))
-        e_k, e_p = float(got[2]), float(ref[2])
-        assert d_T < 1e-3 and d_a < 1e-3, f"coarse level disagrees: dT={d_T} da={d_a}"
-        assert abs(e_k - e_p) <= 0.05 * abs(e_p) + 1e-6, f"coarse energy {e_k} vs {e_p}"
-        assert int(got[3]) == int(ref[3]), f"coarse n_terms {int(got[3])} vs {int(ref[3])}"
-        worst = max(worst, float((got[0] - ref[0]).abs().max()), d_a)
-        per_level.append(dict(P=args[1].shape[1], iters=int(got[4]), plain_iters=int(ref[4])))
-    # adversarial: nothing visible -> the state comes back unchanged
-    args, kw = calls[-1]
-    a2 = list(args)
-    a2[6] = torch.zeros_like(args[6])
-    for fn in (coarse_cuda.coarse_level_ic_cuda, coarse_cuda.coarse_level_ic_plain):
-        T_e, a_e, _, nt_e, _ = fn(*a2, **kw)
-        assert float((T_e - args[7]).abs().max()) <= 1e-6 and int(nt_e) == 0
-        assert abs(float(a_e) - float(args[8])) <= 1e-6
-    # adversarial: a far-off initial pose; both must agree on what they return
-    a3 = list(args)
-    T_far = args[7].clone()
-    T_far[0, 3] += 0.4
-    a3[7] = T_far
-    got = coarse_cuda.coarse_level_ic_cuda(*a3, **kw)
-    ref = coarse_cuda.coarse_level_ic_plain(*a3, **kw)
-    d_far = se3_dist(got[0], ref[0])
-    assert d_far < 1e-3, f"coarse level (far-off init) disagrees: {d_far}"
-    worst = max(worst, float((got[0] - ref[0]).abs().max()))
+        worst = compare_coarse(got, ref, f"coarse level {level}")
+        again = coarse_cuda.coarse_level_ic_cuda(*args, **kw)
+        assert all(same_bits(x, y) for x, y in zip(got, again)), \
+            f"coarse level {level}: second run differs"
+        if level == 1:
+            # adversarial: nothing visible -> the state comes back unchanged
+            a2 = list(args)
+            a2[6] = torch.zeros_like(args[6])
+            for fn in (coarse_cuda.coarse_level_ic_cuda, coarse_cuda.coarse_level_ic_plain):
+                T_e, a_e, _, nt_e, _ = fn(*a2, **kw)
+                assert float((T_e - args[7]).abs().max()) <= 1e-6 and int(nt_e) == 0
+                assert abs(float(a_e) - float(args[8])) <= 1e-6
+            # adversarial: a far-off initial pose; both must agree on what they return
+            a3 = list(args)
+            T_far = args[7].clone()
+            T_far[0, 3] += 0.4
+            a3[7] = T_far
+            got_far = coarse_cuda.coarse_level_ic_cuda(*a3, **kw)
+            ref_far = coarse_cuda.coarse_level_ic_plain(*a3, **kw)
+            d_far = se3_dist(got_far[0], ref_far[0])
+            assert d_far < 1e-3, f"coarse level (far-off init) disagrees: {d_far}"
+            worst = max(worst, float((got_far[0] - ref_far[0]).abs().max()))
+            # a few features only: blocks of the cluster that own none
+            for n_few in (1, 7, 13):
+                a4 = tuple(a[:n_few].contiguous() for a in args[:7]) + tuple(args[7:])
+                compare_coarse(coarse_cuda.coarse_level_ic_cuda(*a4, **kw),
+                               coarse_cuda.coarse_level_ic_plain(*a4, **kw),
+                               f"coarse level 1 cut to {n_few} features")
 
-    # time the finest level (largest pattern)
+        iters = int(got[4])
+        evals = iters + 1
+        nbytes = n * 576 * 4 + n * p * 4 + n * p * 24 + n * 12 + n * 8 + n + 12 * 4 + 12 + 64
+        flops = evals * (n * p * 100 + n * 30)
+        b_ms, b_by = bound(nbytes, flops)
+        launch, _ = coarse_cuda.coarse_level_ic_prepare(*args, **kw)
+        results[f"coarse_level_ic@level{level}"] = dict(
+            max_abs_err=worst, tol=1e-3,
+            shape=f"N={n} P={p} G={kw['g']} image={kw['h_img']}x{kw['w_img']} (level {level}), "
+                  f"{iters} iterations (plain: {int(ref[4])})",
+            evaluations=evals, threads=plan[1], smem_bytes=plan[3],
+            ms=time_ms(launch, device),
+            plain_ms=time_ms(lambda: coarse_cuda.coarse_level_ic_plain(*args, **kw), device,
+                             inner=2, n_timed=5, n_warm=1),
+            library_ms=None, bound_ms=b_ms, bound_by=b_by)
+
+    # the variant that leaves the windows in global memory, on a shape that
+    # forces it: level 1 repeated up to 1024 features
+    args, kw = tiled_coarse_call(*calls[-1], 1024)
     n, p = args[1].shape
-    iters = int(coarse_cuda.coarse_level_ic_cuda(*args, **kw)[4])
-    evals = iters + 1
+    plan = coarse_cuda.coarse_launch_plan(n, p)
+    assert plan == c_launch_plan(n, p) and not plan[2], f"N={n} P={p} should not be resident"
+    got = coarse_cuda.coarse_level_ic_cuda(*args, **kw)
+    ref = coarse_cuda.coarse_level_ic_plain(*args, **kw)
+    worst = compare_coarse(got, ref, "coarse level, windows in global memory")
+    again = coarse_cuda.coarse_level_ic_cuda(*args, **kw)
+    assert all(same_bits(x, y) for x, y in zip(got, again))
+    iters = int(got[4])
     nbytes = n * 576 * 4 + n * p * 4 + n * p * 24 + n * 12 + n * 8 + n + 12 * 4 + 12 + 64
-    flops = evals * (n * p * 100 + n * 30)
-    b_ms, b_by = bound(nbytes, flops)
-    results["coarse_level_ic"] = dict(
-        max_abs_err=worst, tol=1e-3, shape=f"N={n} P={p} (level 1), {iters} iterations",
-        levels=per_level,
-        ms=time_ms(lambda: coarse_cuda.coarse_level_ic_cuda(*args, **kw), device),
+    b_ms, b_by = bound(nbytes, (iters + 1) * (n * p * 100 + n * 30))
+    launch, _ = coarse_cuda.coarse_level_ic_prepare(*args, **kw)
+    results["coarse_level_ic@global-windows"] = dict(
+        max_abs_err=worst, tol=1e-3,
+        shape=f"N={n} P={p} (level 1 repeated; not a shape of the main path), {iters} iterations",
+        evaluations=iters + 1, threads=plan[1], smem_bytes=plan[3],
+        ms=time_ms(launch, device),
         plain_ms=time_ms(lambda: coarse_cuda.coarse_level_ic_plain(*args, **kw), device,
-                         inner=2),
+                         inner=1, n_timed=3, n_warm=1),
         library_ms=None, bound_ms=b_ms, bound_by=b_by)
 
 
@@ -479,9 +556,14 @@ def check_pose(calls, device, results):
     nbytes = n * 8 * 4 + 3 * n + 12 * 4 + 8 + 256
     flops = trials * n * 190 + n * 40
     b_ms, b_by = bound(nbytes, flops)
+    again = pose_cuda.pose_lm_cuda(*args, **kw)
+    assert all(same_bits(x, y) for x, y in zip(got, again)), \
+        "pose LM: second run differs"
+    launch, _ = pose_cuda.pose_lm_prepare(*args, **kw)
     results["pose_lm"] = dict(
         max_abs_err=worst, tol=5e-4, shape=f"N={n}, {trials} trials (plain: {int(ref[3])})",
-        ms=time_ms(lambda: pose_cuda.pose_lm_cuda(*args, **kw), device),
+        evaluations=trials + 1, n=n,
+        ms=time_ms(launch, device),
         plain_ms=time_ms(lambda: pose_cuda.pose_lm_plain(*args, **kw), device,
                          inner=2),
         library_ms=None, bound_ms=b_ms, bound_by=b_by)
@@ -622,6 +704,62 @@ def check_zmncc(calls, cur_pyr, device, results):
         library_ms=None, bound_ms=b_ms, bound_by=b_by)
 
 
+# ------------------------------------------------------------------ latency phase
+PROBES = {"block_barrier": 0, "cluster_barrier": 1, "block_sums_37": 2, "block_sums_28": 3,
+          "coarse_step": 4, "pose_step": 5, "cluster_sum_37": 6}
+
+
+def probe_us(kind: str, threads: int, cluster: int, device, rounds: int = 2000) -> float:
+    """Microseconds per round of one latency probe (``csrc/probe.cu``): the
+    difference of two loop lengths over the extra rounds, so that the launch
+    and the set-up drop out."""
+    out = torch.zeros((1,), device=device)
+    fn = _cuda_build.lib().hso_probe_latency
+    stream = torch.cuda.current_stream(device).cuda_stream
+
+    def run(n):
+        _cuda_build.check(fn(PROBES[kind], threads, cluster, n, out.data_ptr(), stream),
+                          "hso_probe_latency")
+
+    t1 = time_ms(lambda: run(rounds), device, inner=1, n_timed=7, n_warm=2)
+    t2 = time_ms(lambda: run(2 * rounds), device, inner=1, n_timed=7, n_warm=2)
+    return (t2 - t1) / rounds * 1e3
+
+
+def latency_floor(results, device) -> dict:
+    """The card's figures for the pieces of one serial evaluation, and the
+    floor they put under K3 (per level, at the block size its plan chose) and
+    K5: evaluations x (reduction + barrier + scalar step).  K3's reduction is
+    the block's sums plus the cluster-wide sum (which holds the cluster
+    barrier); K5's is the block's sums plus one block barrier."""
+    cluster = coarse_cuda.CLUSTER
+    k5_threads = (results["pose_lm"]["n"] + 31) // 32 * 32
+    us = {"k5_block_sums": probe_us("block_sums_28", k5_threads, 1, device),
+          "k5_scalar_step": probe_us("pose_step", k5_threads, 1, device),
+          "k5_block_barrier": probe_us("block_barrier", k5_threads, 1, device)}
+    per_eval = {"k5": us["k5_block_sums"] + us["k5_block_barrier"] + us["k5_scalar_step"]}
+    for threads in sorted({r["threads"] for k, r in results.items() if k.startswith("coarse")}):
+        piece = {"block_barrier": probe_us("block_barrier", threads, 1, device),
+                 "cluster_barrier": probe_us("cluster_barrier", threads, cluster, device),
+                 "block_sums": probe_us("block_sums_37", threads, 1, device),
+                 "cluster_sum": probe_us("cluster_sum_37", threads, cluster, device),
+                 "scalar_step": probe_us("coarse_step", threads, 1, device)}
+        us.update({f"k3_{name}@{threads}": v for name, v in piece.items()})
+        per_eval[f"k3@{threads}"] = (piece["block_sums"] + piece["cluster_sum"]
+                                     + piece["scalar_step"])
+    floors = {}
+    for key, r in results.items():
+        if key.startswith("coarse_level_ic"):
+            floors[key] = r["evaluations"] * per_eval[f"k3@{r['threads']}"] * 1e-3
+        elif key == "pose_lm":
+            floors[key] = r["evaluations"] * per_eval["k5"] * 1e-3
+        else:
+            continue
+        r["latency_floor_ms"] = floors[key]
+    return dict(us_per_round=us, k3_cluster=cluster, k5_threads=k5_threads,
+                us_per_evaluation=per_eval, latency_floor_ms=floors)
+
+
 # ------------------------------------------------------------------ track phase
 def initial_state(cam, cfg, device):
     """The state both steps start from (the tracking step ignores the seed
@@ -750,6 +888,22 @@ def track_ate(recs, gt_poses) -> float:
     return ate(est, gt, with_scale=True).rmse
 
 
+def lm_kernel_resources() -> dict:
+    """Registers, stack, spills and static shared memory of K3 (both
+    instances) and K5, as ``ptxas -v`` printed them in the build."""
+    names = {"coarse_level_ic_kernelILb1": "coarse_level_ic_kernel<windows resident>",
+             "coarse_level_ic_kernelILb0": "coarse_level_ic_kernel<windows in global memory>",
+             "pose_lm_kernel": "pose_lm_kernel"}
+    found = {}
+    for src in ("coarse.cu", "pose.cu"):
+        for entry, res in _cuda_build.kernel_resources(_cuda_build.BUILD_LOG[src]).items():
+            for part, name in names.items():
+                if part in entry:
+                    found[name] = res
+    assert len(found) == len(names), f"ptxas reported {sorted(found)}"
+    return found
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -766,9 +920,11 @@ def main() -> int:
          torch=torch.__version__, cuda=torch.version.cuda)
 
     t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):      # ptxas -v is read, not shown
+        _cuda_build.build(verbose=True)
     _cuda_build.lib()
     emit("build", seconds=round(time.perf_counter() - t0, 2),
-         library=os.path.relpath(_cuda_build.build(), ROOT))
+         library=os.path.relpath(_cuda_build.build(), ROOT), lm_kernels=lm_kernel_resources())
 
     cam, cfg = bench_camera(), Config()
     track_step, grid, n_obs_pad = build_step(cam, cfg, device)
@@ -807,8 +963,10 @@ def main() -> int:
             float(out0["depth_mean"]), float(out0["depth_min"]), 200.0)
     check_extract_seed(rec1.calls, device, results)
     torch.cuda.synchronize(device)
+    latency = latency_floor(results, device)
     for name, r in results.items():
         emit("kernels", name=name, card=smi, **r)
+    emit("latency", card=smi, **latency)
 
     # ---- track: the tracking half, counters set to 0 just before, read just after
     zero_counters()
@@ -856,6 +1014,8 @@ def main() -> int:
     assert tallies["pack_level_windows"].counts == {24: 2 * N_FRAMES, epipolar.EW: N_FRAMES}
     assert tallies["align_match"].counts == {24: 2 * N_FRAMES, epipolar.EW: N_FRAMES}
     assert launches_f["pack_level_windows"] == launches_f["align_match"] == 3 * N_FRAMES
+    n_ic_f = sum(not r["used_fc"] for r in recs_f)
+    assert tallies["coarse_level_ic"].counts == {h: n_ic_f for h in (30, 60, 120, 240)}
     min_inl_f, rmse_f = check_run(recs_f, gt, "frame")
     # with a frozen map the sweep feeds nothing back into tracking: the poses
     # of the two paths must be the same bits
@@ -903,6 +1063,33 @@ def main() -> int:
          seeds_updated_per_frame=[r["n_seeds_updated"] for r in recs_f],
          frame1_vs_plain=d_plain_f, frame1_matched_flips=n_flip, frame1_mu_vs_plain=d_mu,
          second_run_bitwise_equal=True)
+
+    # ---- fc_frame: one frame forced through the forward-compositional branch
+    # of the coarse tracker (the step picks it when the gradient mean rose by
+    # more than 0.5 over the previous frame's, so a previous mean far below
+    # forces it), on the card and on the CPU from the same state; tolerances of
+    # tests/test_torch_coarse.py (pose 1e-3, exposure ratio 1e-3)
+    state_fc = dict(state0, prev_grad_mean=-1e6)
+    zero_counters()
+    out_fc = run_one(frame_step, state_fc, frames[0], whole=True)
+    torch.cuda.synchronize(device)
+    launches_fc = read_counters()
+    cpu = torch.device("cpu")
+    cpu_step, _, _ = build_step(cam, cfg, cpu, whole=True)
+    cpu_state, _ = initial_state(cam, cfg, cpu)
+    cpu_fc = run_one(cpu_step, dict(cpu_state, prev_grad_mean=-1e6), frames[0], whole=True)
+    assert read_counters() == launches_fc, "the CPU run launched a kernel"
+    assert bool(out_fc["used_fc"]) and bool(cpu_fc["used_fc"]), "the FC branch was not taken"
+    assert launches_fc["coarse_level_ic"] == 0, "an FC frame launched the IC kernel"
+    d_fc = se3_dist(out_fc["T_new"], cpu_fc["T_new"])
+    d_exp = abs(float(out_fc["exposure"]) - float(cpu_fc["exposure"]))
+    assert d_fc < 1e-3 and d_exp < 1e-3, f"FC frame: card and CPU differ: dT={d_fc} da={d_exp}"
+    d_ic = se3_dist(out_fc["T_new"], torch.as_tensor(recs_f[0]["T_new"]))
+    assert d_ic < 1e-2, f"FC and IC disagree on frame 1: {d_ic}"
+    assert int(out_fc["n_inliers"]) >= 50 and int(cpu_fc["n_inliers"]) >= 50
+    emit("fc_frame", card=smi, used_fc=True, t_new_card_vs_cpu=d_fc, exposure_card_vs_cpu=d_exp,
+         t_new_fc_vs_ic=d_ic, n_inliers=int(out_fc["n_inliers"]),
+         n_inliers_cpu=int(cpu_fc["n_inliers"]), launches=launches_fc)
 
     # ---- seeds: the seed table's life on the card and on the CPU from the
     # same numpy state: fill the free slots from the last keyframe's
@@ -956,18 +1143,23 @@ def main() -> int:
             return name, tallies_s[name].counts[SEED_WIN]
         if where == "sweep":
             return name, tallies[name].counts[epipolar.EW]
+        if where.startswith("level"):
+            return name, tallies[name].counts[cam.height >> int(where[5:])]
         if name in tallies:
             return name, tallies[name].counts[24]
         return name, launches_f[name]
 
     kernels = []
     for key, r in results.items():
+        if key == "coarse_level_ic@global-windows":
+            continue          # a forced shape, not one of the main path: `kernels` phase only
         name, n = launches_of(key)
         kernels.append(dict(
             name=name, shape=r["shape"], route="cuda", source=KERNEL_META[name][0],
             replaces=KERNEL_META[name][1], launches=n, max_abs_err=r["max_abs_err"],
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-            bound_by=r["bound_by"], library_ms=r["library_ms"]))
+            bound_by=r["bound_by"], library_ms=r["library_ms"],
+            **({"latency_floor_ms": r["latency_floor_ms"]} if "latency_floor_ms" in r else {})))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

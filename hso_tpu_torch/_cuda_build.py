@@ -19,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 
@@ -30,6 +31,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC"]
 
 _lib = None
+#: what nvcc printed for each source in the last ``build(verbose=True)``
+BUILD_LOG: dict = {}
 
 
 def _nvcc() -> str:
@@ -42,41 +45,46 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built on this machine")
 
 
-def _sources() -> list[str]:
-    return sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cu"))
+def _sources(csrc_dir: str = CSRC_DIR) -> list[str]:
+    return sorted(f for f in os.listdir(csrc_dir) if f.endswith(".cu"))
 
 
-def _source_hash() -> str:
+def _source_hash(csrc_dir: str = CSRC_DIR) -> str:
     h = hashlib.sha256()
-    for name in sorted(os.listdir(CSRC_DIR)):
+    for name in sorted(os.listdir(csrc_dir)):
         if name.endswith((".cu", ".cuh")):
             h.update(name.encode())
-            with open(os.path.join(CSRC_DIR, name), "rb") as fh:
+            with open(os.path.join(csrc_dir, name), "rb") as fh:
                 h.update(fh.read())
     h.update(" ".join(NVCC_FLAGS).encode())
     return h.hexdigest()[:16]
 
 
-def build(verbose: bool = False) -> str:
-    """Compile (if needed) and return the path of the shared library."""
-    tag = _source_hash()
+def build(verbose: bool = False, csrc_dir: str = CSRC_DIR) -> str:
+    """Compile (if needed) and return the path of the shared library.
+    ``verbose`` always compiles and prints what ``ptxas -v`` says of every
+    kernel (registers, shared memory, spills).  ``csrc_dir`` names another
+    directory of sources with the same C interface (an earlier version of
+    the kernels, to be timed beside this one)."""
+    tag = _source_hash(csrc_dir)
     so_path = os.path.join(BUILD_DIR, f"libhso_kernels_{tag}.so")
-    if os.path.exists(so_path):
+    if os.path.exists(so_path) and not verbose:
         return so_path
     os.makedirs(BUILD_DIR, exist_ok=True)
     nvcc = _nvcc()
     extra = ["-Xptxas", "-v"] if verbose else []
     procs = []
-    for src in _sources():
+    for src in _sources(csrc_dir):
         obj = os.path.join(BUILD_DIR, f"{os.path.splitext(src)[0]}_{tag}.o")
-        cmd = [nvcc, *NVCC_FLAGS, *extra, "-I", CSRC_DIR, "-c",
-               os.path.join(CSRC_DIR, src), "-o", obj]
+        cmd = [nvcc, *NVCC_FLAGS, *extra, "-I", csrc_dir, "-c",
+               os.path.join(csrc_dir, src), "-o", obj]
         procs.append((src, obj, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     objs, failed = [], []
     for src, obj, p in procs:          # every process is waited for
         out, _ = p.communicate()
-        if verbose and out:
+        if verbose:
+            BUILD_LOG[src] = out
             print(out)
         if p.returncode != 0:
             failed.append(f"nvcc failed on {src}:\n{out}")
@@ -90,6 +98,32 @@ def build(verbose: bool = False) -> str:
         raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
     os.replace(tmp, so_path)
     return so_path
+
+
+def kernel_resources(log: str) -> dict:
+    """What ``ptxas -v`` said of each kernel in one source's compiler output:
+    ``{mangled entry name: {registers, stack, spill_stores, spill_loads,
+    smem}}`` (bytes but for the registers; ``smem`` is the static part)."""
+    found, entry = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry = m.group(1)
+            found[entry] = {}
+            continue
+        if entry is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            found[entry].update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                                spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            found[entry]["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            found[entry]["smem"] = int(sm.group(1)) if sm else 0
+    return found
 
 
 _P = ctypes.c_void_p
@@ -120,19 +154,29 @@ _SIGNATURES = {
     "hso_align_match": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P],
     "hso_pose_lm": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P],
     "hso_zmncc_line_scores": [_P] * 11 + [_I, _I, _I] + [_P, _P, _P, _P],
+    "hso_coarse_launch_plan": [_I, _I, ctypes.POINTER(_I * 4)],
+    "hso_coarse_plan_override": [_I, _I],
+    "hso_probe_latency": [_I, _I, _I, _I, _P, _P],
 }
+
+
+def load(so_path: str) -> ctypes.CDLL:
+    """Load a built library and declare the signatures of the functions it
+    has (an earlier version of the sources may lack the newer ones)."""
+    handle = ctypes.CDLL(so_path)
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(handle, name, None)
+        if fn is not None:
+            fn.argtypes = argtypes
+            fn.restype = _I
+    return handle
 
 
 def lib() -> ctypes.CDLL:
     """The loaded kernel library (built on first call)."""
     global _lib
     if _lib is None:
-        handle = ctypes.CDLL(build())
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(handle, name)
-            fn.argtypes = argtypes
-            fn.restype = _I
-        _lib = handle
+        _lib = load(build())
     return _lib
 
 

@@ -12,8 +12,9 @@ or both in turn; warms up, then records ``--frames`` steps under
 ``torch.profiler`` and prints one JSON object per step: wall time per frame
 (host clock around a synchronised step), device-busy share (sum of device
 kernel time over wall time), device kernels launched per frame, the device
-time of the six hand-written kernels, and the ten heaviest device kernels.
-If the profiler reports no device time the object says so and carries only
+time of the six hand-written kernels, the device time per launch of K3 (the
+coarse level loop) by pyramid level and pattern size, and the ten heaviest
+device kernels.  If the profiler reports no device time the object says so and carries only
 the wall times.
 """
 
@@ -36,6 +37,24 @@ OWN_KERNELS = ("extract_windows_kernel", "pack_level_windows_kernel", "coarse_le
                "align_match_kernel", "pose_lm_kernel", "zmncc_line_kernel")
 
 
+def k3_by_level(prof, shapes, h0: int):
+    """Device time per launch of K3 by level: the profiler's K3 kernel events
+    in start order, matched with the shapes noted at the call site."""
+    events = sorted((e for e in prof.events()
+                     if "coarse_level_ic_kernel" in e.name
+                     and str(getattr(e, "device_type", "")).endswith("CUDA")),
+                    key=lambda e: e.time_range.start)
+    if len(events) != len(shapes):
+        return f"not measured: {len(events)} K3 kernel events for {len(shapes)} launches"
+    by = {}
+    for e, (h, p) in zip(events, shapes):
+        level = (h0 // h).bit_length() - 1
+        by.setdefault(f"level {level} (P={p}, image height {h})", []).append(
+            e.time_range.elapsed_us() / 1e3)
+    return {k: {"launches": len(v), "ms_median": statistics.median(v), "ms_mean": sum(v) / len(v)}
+            for k, v in by.items()}
+
+
 def profile_step(cs, which: str, cam, cfg, device, args, card: str) -> dict:
     whole = which == "frame"
     step, _, _ = cs.build_step(cam, cfg, device, whole=whole)
@@ -52,7 +71,16 @@ def profile_step(cs, which: str, cam, cfg, device, args, card: str) -> dict:
     wall_ms = []
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    from hso_tpu_torch.track import coarse_cuda, coarse_tracker
+
+    k3_shapes = []            # (image height, P) of every K3 launch, in launch order
+
+    def k3_noting_shape(*a, **kw):
+        k3_shapes.append((kw["h_img"], a[1].shape[1]))
+        return coarse_cuda.coarse_level_ic(*a, **kw)
+
+    with cs.patched([(coarse_tracker, "coarse_level_ic", k3_noting_shape)]), \
+            profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for img in frames[args.warm:]:
             t0 = time.perf_counter()
             out = cs.run_one(step, state, img, whole)
@@ -79,6 +107,7 @@ def profile_step(cs, which: str, cam, cfg, device, args, card: str) -> dict:
             k: sum(r[1] for r in rows if k in r[0]) / 1e3 / args.frames for k in OWN_KERNELS}
         doc["own_kernels_calls_per_frame"] = {
             k: sum(r[2] for r in rows if k in r[0]) / args.frames for k in OWN_KERNELS}
+        doc["k3_ms_per_launch_by_level"] = k3_by_level(prof, k3_shapes, cam.height)
         rows.sort(key=lambda r: -r[1])
         doc["top_device_kernels"] = [
             {"name": r[0][:90], "ms_per_frame": r[1] / 1e3 / args.frames,

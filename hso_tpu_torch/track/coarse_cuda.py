@@ -5,10 +5,12 @@ Counterpart of the JAX package's ``track/coarse_pallas.py``
 pyramid level — project, bounds mask, pattern samples inside each feature's
 24×24 window, Huber/cutoff weights, 7×7 normal equations over all features,
 damped Cholesky, SE3 exp, accept/reject, early stop.  Device code:
-``csrc/coarse.cu``.  IC and pinhole only; the forward-compositional variant
-runs the same :func:`lm_level_loop` in plain PyTorch on either device.
-Dispatch rule: a CPU tensor takes the plain version, a CUDA tensor launches
-the kernel or raises.
+``csrc/coarse.cu``: one thread-block cluster of 8 blocks runs the level with
+each block's features resident in its shared memory (so the kernel needs a
+device with cluster launch, compute capability 9.0 or newer).  IC and pinhole
+only; the forward-compositional variant runs the same :func:`lm_level_loop`
+in plain PyTorch on either device.  Dispatch rule: a CPU tensor takes the
+plain version, a CUDA tensor launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -23,6 +25,40 @@ from hso_tpu_torch.ops.gatherless import bilinear_scatter_in_windows, grid_in_wi
 
 WIN = 24
 LAUNCHES = {"coarse_level_ic": 0}
+
+#: the launch plan's constants, mirrored from ``csrc/coarse.cu``
+CLUSTER = 8               # blocks of the cluster (the portable maximum)
+THREADS = 256             # threads of a block; doubled above two items per thread
+N_SUMS = 37               # 28 entries of H, 7 of b, the energy, the term count
+STATE_FLOATS = 176        # two slots and two totals of N_SUMS, one trial state, padded
+SMEM_MAX = 232448         # dynamic shared memory a block may ask for (227 KB)
+
+
+def coarse_block_bytes(threads: int, feats: int, p: int, resident: bool) -> int:
+    """Dynamic shared memory of one block that owns ``feats`` features: the
+    reduction buffer, the slots of the cluster-wide sum, the per-item tables
+    (a 4-float record and 6 template Jacobian entries per item), points,
+    anchors, visibility and, when ``resident``, the 24×24 windows."""
+    floats = ((N_SUMS * (threads // 32) + 3) // 4 * 4 + STATE_FLOATS
+              + (feats * WIN * WIN if resident else 0) + feats * p * 10 + feats * 5)
+    return (floats * 4 + feats + 15) // 16 * 16
+
+
+def coarse_launch_plan(n: int, p: int) -> tuple:
+    """The launch of K3 for ``n`` features with ``p`` pattern points, from the
+    shape alone: ``(cluster, threads, resident, smem_bytes)``.  Block ``r`` of
+    the cluster owns features ``[r·F, min(n, (r+1)·F))`` with ``F = ⌈n/cluster⌉``
+    (a block may own none).  ``resident`` says whether a block's windows fit
+    its shared memory beside the tables; if not, the same kernel reads the
+    windows from global memory.  Raises if even that does not fit."""
+    feats = -(-n // CLUSTER)
+    threads = 2 * THREADS if feats * p > 2 * THREADS else THREADS
+    resident = coarse_block_bytes(threads, feats, p, True) <= SMEM_MAX
+    smem = coarse_block_bytes(threads, feats, p, resident)
+    if smem > SMEM_MAX:
+        raise ValueError(f"coarse level of {n} features x {p} points needs {smem} bytes of "
+                         f"shared memory per block, more than {SMEM_MAX}")
+    return CLUSTER, threads, resident, smem
 
 
 def pattern_samples(windows, rel_u, rel_v, center: int, pattern, with_grad: bool):
@@ -138,13 +174,15 @@ def coarse_level_ic_plain(w_cur, ref_patch, j_ic, xyz_ref, au_c, av_c, vis, T0, 
     return lm_level_loop(evaluate, T0, a0, n_iter, inverse=True)
 
 
-def coarse_level_ic_cuda(w_cur, ref_patch, j_ic, xyz_ref, au_c, av_c, vis, T0, a0,
-                         huber, cutoff, fxl: float, fyl: float, cxl: float, cyl: float,
-                         g: int, center: int, pattern: tuple, n_iter: int, is_top: bool,
-                         border: int, h_img: int, w_img: int):
-    """K3: launch ``hso_coarse_level_ic`` on the current stream (one block
-    runs the whole level loop).  No host sync: ``a0``/``huber``/``cutoff``
-    travel as a small device tensor."""
+def coarse_level_ic_prepare(w_cur, ref_patch, j_ic, xyz_ref, au_c, av_c, vis, T0, a0,
+                            huber, cutoff, fxl: float, fyl: float, cxl: float, cyl: float,
+                            g: int, center: int, pattern: tuple, n_iter: int, is_top: bool,
+                            border: int, h_img: int, w_img: int):
+    """Check the tensors and prepare one launch of K3: returns ``(launch,
+    out)``.  ``launch()`` enqueues ``hso_coarse_level_ic`` on the stream that
+    was current here and adds one to the count; ``out`` (16 floats) receives
+    T, a, E_norm, n_terms, iterations.  A timing loop calls ``launch`` again
+    and again on the same inputs without the wrapper's tensor work."""
     from hso_tpu_torch import _cuda_build
 
     _want = _cuda_build.check_tensor
@@ -152,6 +190,7 @@ def coarse_level_ic_cuda(w_cur, ref_patch, j_ic, xyz_ref, au_c, av_c, vis, T0, a
     n, p = ref_patch.shape
     if p != len(pattern) or p > _cuda_build.PatternTable.MAX_POINTS:
         raise ValueError(f"pattern of {len(pattern)} points does not fit ref_patch {p}")
+    coarse_launch_plan(n, p)                 # raises on a shape the kernel does not take
     _want(w_cur, torch.float32, (n, WIN, WIN), dev, "w_cur")
     _want(ref_patch, torch.float32, (n, p), dev, "ref_patch")
     _want(j_ic, torch.float32, (n, p, 6), dev, "j_ic")
@@ -165,14 +204,34 @@ def coarse_level_ic_cuda(w_cur, ref_patch, j_ic, xyz_ref, au_c, av_c, vis, T0, a
     for k, (dx, dy) in enumerate(pattern):
         table.dx[k], table.dy[k] = int(dx), int(dy)
     out = torch.empty((16,), dtype=torch.float32, device=dev)
-    err = _cuda_build.lib().hso_coarse_level_ic(
-        w_cur.data_ptr(), ref_patch.data_ptr(), j_ic.data_ptr(), xyz_ref.data_ptr(),
-        au_c.data_ptr(), av_c.data_ptr(), vis.data_ptr(), T0.data_ptr(), sc.data_ptr(),
-        fxl, fyl, cxl, cyl, n, p, g, center, ctypes.byref(table),
-        n_iter, int(is_top), border, h_img, w_img, out.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
-    _cuda_build.check(err, "hso_coarse_level_ic")
-    LAUNCHES["coarse_level_ic"] += 1
+    fn = _cuda_build.lib().hso_coarse_level_ic
+    # the tuple keeps every tensor the kernel reads alive as long as `launch`
+    args = (w_cur.data_ptr(), ref_patch.data_ptr(), j_ic.data_ptr(), xyz_ref.data_ptr(),
+            au_c.data_ptr(), av_c.data_ptr(), vis.data_ptr(), T0.data_ptr(), sc.data_ptr(),
+            fxl, fyl, cxl, cyl, n, p, g, center, ctypes.byref(table),
+            n_iter, int(is_top), border, h_img, w_img, out.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    alive = (w_cur, ref_patch, j_ic, xyz_ref, au_c, av_c, vis, T0, sc, table, out)
+
+    def launch(_alive=alive):
+        _cuda_build.check(fn(*args), "hso_coarse_level_ic")
+        LAUNCHES["coarse_level_ic"] += 1
+
+    return launch, out
+
+
+def coarse_level_ic_cuda(w_cur, ref_patch, j_ic, xyz_ref, au_c, av_c, vis, T0, a0,
+                         huber, cutoff, fxl: float, fyl: float, cxl: float, cyl: float,
+                         g: int, center: int, pattern: tuple, n_iter: int, is_top: bool,
+                         border: int, h_img: int, w_img: int):
+    """K3: launch ``hso_coarse_level_ic`` on the current stream (one cluster
+    of blocks runs the whole level loop, :func:`coarse_launch_plan`); the
+    arguments of :func:`coarse_level_ic_plain`.  No host sync:
+    ``a0``/``huber``/``cutoff`` travel as a small device tensor."""
+    launch, out = coarse_level_ic_prepare(
+        w_cur, ref_patch, j_ic, xyz_ref, au_c, av_c, vis, T0, a0, huber, cutoff,
+        fxl, fyl, cxl, cyl, g, center, pattern, n_iter, is_top, border, h_img, w_img)
+    launch()
     return (out[:12].reshape(3, 4), out[12], out[13],
             out[14].to(torch.int32), out[15].to(torch.int32))
 

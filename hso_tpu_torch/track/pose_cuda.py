@@ -50,9 +50,12 @@ def residuals(T_e, p_world, obs_uv, grad, sqrt_inv_cov, is_edgelet):
 
 
 def pose_lm_plain(T0, p_world, obs_uv, grad, sqrt_inv_cov, is_edgelet, is_temporary,
-                  valid, scale_pt, scale_ls, n_iter: int = 12):
+                  valid, scale_pt, scale_ls, n_iter: int = 12, reuse_system: bool = False):
     """LM trial loop in plain PyTorch.  Returns (T (3,4), A_last (6,6),
-    chi2_final, n_trials).  One host sync per trial (accept / stop tests)."""
+    chi2_final, n_trials).  One host sync per trial (accept / stop tests).
+    With ``reuse_system`` the normal equations are built once per accepted
+    pose and kept across rejected trials, as the kernel keeps them; the
+    result is the same, since only the damping changes after a reject."""
     zero = torch.zeros_like(sqrt_inv_cov)
 
     def weights(r_edge, r_abs):
@@ -88,12 +91,15 @@ def pose_lm_plain(T0, p_world, obs_uv, grad, sqrt_inv_cov, is_edgelet, is_tempor
     A_last = torch.zeros((6, 6), dtype=torch.float32, device=T.device)
     n_trials = 0
     stop = False
+    built = None                       # the system at the current T, when kept
     for _ in range(n_iter):
         if stop:
             break
         accepted = False
         for _ in range(MAX_TRIALS):
-            A, b = system(T)
+            if built is None or not reuse_system:
+                built = system(T)
+            A, b = built
             Ad = A + torch.diag(torch.diagonal(A)) * mu
             dT = solve_spd_small(Ad, b)
             ok = torch.all(torch.isfinite(dT))
@@ -104,7 +110,7 @@ def pose_lm_plain(T0, p_world, obs_uv, grad, sqrt_inv_cov, is_edgelet, is_tempor
             n_trials += 1
             if bool(rho > 0):
                 # the raw chi2 decrease feeds the Nielsen update
-                T, chi2, A_last = T_new, chi2_new, A
+                T, chi2, A_last, built = T_new, chi2_new, A, None
                 mu = mu * torch.clamp(1.0 - (2.0 * rho - 1.0) ** 3, 1.0 / 3.0, 2.0 / 3.0)
                 nu = torch.full_like(nu, 2.0)
                 accepted = True
@@ -116,10 +122,13 @@ def pose_lm_plain(T0, p_world, obs_uv, grad, sqrt_inv_cov, is_edgelet, is_tempor
     return T, A_last, chi2, n_trials
 
 
-def pose_lm_cuda(T0, p_world, obs_uv, grad, sqrt_inv_cov, is_edgelet, is_temporary,
-                 valid, scale_pt, scale_ls, n_iter: int = 12):
-    """K5: launch ``hso_pose_lm`` on the current stream (one block runs the
-    whole trial loop).  ``n_trials`` comes back as a 0-d device tensor."""
+def pose_lm_prepare(T0, p_world, obs_uv, grad, sqrt_inv_cov, is_edgelet, is_temporary,
+                    valid, scale_pt, scale_ls, n_iter: int = 12):
+    """Check the tensors and prepare one launch of K5: returns ``(launch,
+    out)``.  ``launch()`` enqueues ``hso_pose_lm`` on the stream that was
+    current here and adds one to the count; ``out`` (64 floats) receives T,
+    A_last, chi2 and the trial count.  A timing loop calls ``launch`` again
+    and again on the same inputs without the wrapper's tensor work."""
     from hso_tpu_torch import _cuda_build
 
     _want = _cuda_build.check_tensor
@@ -135,13 +144,31 @@ def pose_lm_cuda(T0, p_world, obs_uv, grad, sqrt_inv_cov, is_edgelet, is_tempora
     _want(valid, torch.bool, (n,), dev, "valid")
     scales = torch.stack([scale_pt.reshape(()), scale_ls.reshape(())]).to(torch.float32)
     out = torch.empty((64,), dtype=torch.float32, device=dev)
-    err = _cuda_build.lib().hso_pose_lm(
-        T0.data_ptr(), p_world.data_ptr(), obs_uv.data_ptr(), grad.data_ptr(),
-        sqrt_inv_cov.data_ptr(), is_edgelet.data_ptr(), is_temporary.data_ptr(),
-        valid.data_ptr(), scales.data_ptr(), n, n_iter, out.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
-    _cuda_build.check(err, "hso_pose_lm")
-    LAUNCHES["pose_lm"] += 1
+    fn = _cuda_build.lib().hso_pose_lm
+    # the tuple keeps every tensor the kernel reads alive as long as `launch`
+    args = (T0.data_ptr(), p_world.data_ptr(), obs_uv.data_ptr(), grad.data_ptr(),
+            sqrt_inv_cov.data_ptr(), is_edgelet.data_ptr(), is_temporary.data_ptr(),
+            valid.data_ptr(), scales.data_ptr(), n, n_iter, out.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    alive = (T0, p_world, obs_uv, grad, sqrt_inv_cov, is_edgelet, is_temporary, valid, scales,
+             out)
+
+    def launch(_alive=alive):
+        _cuda_build.check(fn(*args), "hso_pose_lm")
+        LAUNCHES["pose_lm"] += 1
+
+    return launch, out
+
+
+def pose_lm_cuda(T0, p_world, obs_uv, grad, sqrt_inv_cov, is_edgelet, is_temporary,
+                 valid, scale_pt, scale_ls, n_iter: int = 12):
+    """K5: launch ``hso_pose_lm`` on the current stream (one block runs the
+    whole trial loop, one fused pass per trial over observations held in
+    registers); the arguments of :func:`pose_lm_plain`.  ``n_trials`` comes
+    back as a 0-d device tensor."""
+    launch, out = pose_lm_prepare(T0, p_world, obs_uv, grad, sqrt_inv_cov, is_edgelet,
+                                  is_temporary, valid, scale_pt, scale_ls, n_iter)
+    launch()
     return out[:12].reshape(3, 4), out[12:48].reshape(6, 6), out[48], out[49].to(torch.int32)
 
 

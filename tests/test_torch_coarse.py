@@ -2,8 +2,10 @@
 
 One level: the plain version of kernel K3 against the JAX level loop
 (``coarse_level_ic_tpu`` run in Pallas interpret mode, as the JAX package's
-own parity test runs it).  Whole track: IC and FC against
-``make_coarse_tracker``.  Tolerances: T < 1e-3 (|log| of the relative
+own parity test runs it), at the four level shapes of the main path.  Whole
+track: IC and FC against ``make_coarse_tracker``.  The launch plan of K3
+(which block of the cluster owns which features, and whether their windows
+fit its shared memory) is a pure function of the shape and is held here.  Tolerances: T < 1e-3 (|log| of the relative
 transform), exposure ratio < 1e-3, energy within 5 % — two float32
 implementations summing ~10^3 residuals in different orders through up to 30
 accept/reject steps agree on the converged state, not on the iterate path.
@@ -96,12 +98,12 @@ def test_track_matches_jax(problem, inverse):
     assert out["n_iters"].shape == (3,) and out["n_iters"].dtype == torch.int32
 
 
-def _level_inputs(problem, level=2, max_level=3, pattern_offset=2):
+def _level_inputs(problem, level=2, pat_idx=3, is_top=False):
     """Inputs of one IC level built with numpy from the two images: windows
-    by slicing, reference patches and template Jacobians at integer pixels."""
+    by slicing, reference patches and template Jacobians at integer pixels.
+    ``pat_idx`` picks the pattern (and with it P and the grid edge G)."""
     p = problem
     cam = p["cam"]
-    pat_idx = max_level - level + pattern_offset
     pattern = tuple(map(tuple, PATTERNS[pat_idx]))
     radius = PATTERN_PADDING[pat_idx]
     g, c = 2 * radius + 3, radius + 1
@@ -142,17 +144,29 @@ def _level_inputs(problem, level=2, max_level=3, pattern_offset=2):
     return dict(w_cur=w_cur, ref_patch=ref_patch, j_ic=j_ic.astype(np.float32), xyz=xyz, au=au,
                 av=av, vis=vis, T0=T0.astype(np.float32), a0=np.float32(0.95),
                 huber=np.float32(9.0), cutoff=np.float32(40.0),
-                static=dict(g=g, center=c, pattern=pattern, n_iter=30, is_top=False,
+                static=dict(g=g, center=c, pattern=pattern, n_iter=30, is_top=is_top,
                             border=radius + 1, h_img=h, w_img=w),
                 intr=(float(fxl), float(fyl), float(cxl), float(cyl)))
 
 
+#: the four level shapes of the main path (``PATTERNS[max_level - level + 2]``
+#: at levels 4, 3, 2, 1 of a 640x480 frame: P = 9, 13, 13, 21 with G = 5, 7, 7,
+#: 9, the coarsest with the top level's energy), laid on the levels this
+#: 320x240 scene has features on: (id, level here, pattern index, is_top)
+LEVEL_SHAPES = [("level4-P9-top", 3, 2, True), ("level3-P13", 2, 3, False),
+                ("level2-P13", 1, 4, False), ("level1-P21", 1, 5, False)]
+
+
 @pytest.mark.parametrize("empty", [False, True], ids=["live", "empty-mask"])
-def test_level_plain_matches_jax_level_loop(problem, empty):
+@pytest.mark.parametrize("shape", LEVEL_SHAPES, ids=[s[0] for s in LEVEL_SHAPES])
+def test_level_plain_matches_jax_level_loop(problem, shape, empty):
     """K3's plain version against the JAX kernel of the same level."""
     from hso_tpu.track.coarse_pallas import coarse_level_ic_tpu
 
-    q = _level_inputs(problem)
+    _, level, pat_idx, is_top = shape
+    q = _level_inputs(problem, level=level, pat_idx=pat_idx, is_top=is_top)
+    p_want, g_want = {2: (9, 5), 3: (13, 7), 4: (13, 7), 5: (21, 9)}[pat_idx]
+    assert (len(q["static"]["pattern"]), q["static"]["g"]) == (p_want, g_want)
     vis = np.zeros_like(q["vis"]) if empty else q["vis"]
     with forced_interpret():
         ref = coarse_level_ic_tpu(
@@ -176,5 +190,46 @@ def test_level_plain_matches_jax_level_loop(problem, empty):
     assert _se3_dist(T.numpy(), ref[0]) < 1e-3
     assert abs(float(a) - float(ref[1])) < 1e-3
     np.testing.assert_allclose(float(energy), float(ref[2]), rtol=0.05)
-    # the level moved the pose towards the ground truth
-    assert _se3_dist(T.numpy(), T_GT) < _se3_dist(q["T0"], T_GT)
+    if is_top:
+        # a 40x30 image with features moved to whole pixels: the level holds
+        # the pose near the ground truth, it cannot refine it
+        assert _se3_dist(T.numpy(), T_GT) < 1.5e-2
+    else:
+        # the level moved the pose towards the ground truth
+        assert _se3_dist(T.numpy(), T_GT) < _se3_dist(q["T0"], T_GT)
+
+
+@pytest.mark.parametrize("p", [9, 21, 25])
+@pytest.mark.parametrize("n", [1, 7, 8, 336, 337, 1024])
+def test_coarse_launch_plan(n, p):
+    """The launch of K3 from the shape alone: every feature is owned by
+    exactly one block of the cluster (blocks may own none), the bytes a block
+    asks for are what its tables need and stay under 227 KB, and the windows
+    are resident exactly when they fit."""
+    cluster, threads, resident, smem = coarse_cuda.coarse_launch_plan(n, p)
+    assert cluster == 8 and threads in (256, 512) and threads % 32 == 0
+    feats = -(-n // cluster)
+    owners = np.zeros(n, np.int32)
+    for r in range(cluster):
+        lo = min(r * feats, n)
+        hi = min(lo + feats, n)
+        owners[lo:hi] += 1
+    assert (owners == 1).all()
+    assert smem == coarse_cuda.coarse_block_bytes(threads, feats, p, resident)
+    assert smem <= coarse_cuda.SMEM_MAX == 227 * 1024 and smem % 16 == 0
+    with_windows = coarse_cuda.coarse_block_bytes(threads, feats, p, True)
+    assert resident == (with_windows <= coarse_cuda.SMEM_MAX)
+    assert with_windows - coarse_cuda.coarse_block_bytes(threads, feats, p, False) \
+        == feats * 24 * 24 * 4
+    # the main path's shapes are resident, a thousand features are not
+    assert resident == (n <= 337)
+    # more than two items per thread double the block
+    assert threads == (512 if feats * p > 512 else 256)
+
+
+def test_coarse_launch_plan_refuses_what_does_not_fit():
+    """Even with the windows in global memory the per-item tables must fit:
+    the wrapper raises, it does not fall back."""
+    with pytest.raises(ValueError, match="shared memory"):
+        coarse_cuda.coarse_launch_plan(8 * 300, 21)
+    assert not coarse_cuda.coarse_launch_plan(8 * 250, 21)[2]

@@ -66,14 +66,26 @@ def test_kernel_sources_are_in_the_package():
     from hso_tpu_torch import _cuda_build
 
     assert _cuda_build._sources() == ["align.cu", "coarse.cu", "epipolar.cu", "pose.cu",
-                                      "window.cu"]
+                                      "probe.cu", "window.cu"]
     assert "hso_zmncc_line_scores" in _cuda_build._SIGNATURES
-    with open(os.path.join(_cuda_build.CSRC_DIR, "epipolar.cu")) as fh:
-        src = fh.read()
-    assert 'extern "C" int hso_zmncc_line_scores(' in src and "atomic" not in src.lower().replace(
-        "no atomics", "")
+    # every kernel's entry point is in its source, and no source uses atomics
+    entries = {"epipolar.cu": "hso_zmncc_line_scores", "coarse.cu": "hso_coarse_level_ic",
+               "pose.cu": "hso_pose_lm", "align.cu": "hso_align_match",
+               "window.cu": "hso_extract_windows", "probe.cu": "hso_probe_latency"}
+    for name, entry in entries.items():
+        with open(os.path.join(_cuda_build.CSRC_DIR, name)) as fh:
+            src = fh.read()
+        assert f'extern "C" int {entry}(' in src, name
+        assert "atomic" not in src.lower().replace("no atomics", "").replace(
+            "no float atomics", ""), name
     assert "arch=compute_90a,code=sm_90a" in _cuda_build.NVCC_FLAGS
-    assert all(len(sig) >= 9 for sig in _cuda_build._SIGNATURES.values())
+    # the six kernels take at least nine arguments each (pointers and the
+    # stream declared one by one); the plan, its override and the probe fewer
+    helpers = {"hso_coarse_launch_plan", "hso_coarse_plan_override", "hso_probe_latency"}
+    assert helpers < set(_cuda_build._SIGNATURES)
+    assert all(len(sig) >= 9 for name, sig in _cuda_build._SIGNATURES.items()
+               if name not in helpers)
+    assert len(_cuda_build._SIGNATURES) == 6 + len(helpers)
     h1 = _cuda_build._source_hash()
     assert h1 == _cuda_build._source_hash() and len(h1) == 16
 

@@ -6,6 +6,8 @@ Tolerances: T 5e-4 (|log| of the relative transform), ``err_final_px``
 within 5 %, inlier masks agreeing on ≥ 95 % of slots (a residual at the
 threshold may fall either way); the Nielsen accept test ``rho > 0`` flips on
 rounding near convergence, so the result is held, not the trial count.
+The kernel builds the normal equations once per accepted pose and keeps them
+across rejected trials; the plain version pins that this changes nothing.
 """
 
 import contextlib
@@ -98,3 +100,29 @@ def test_pose_lm_plain_matches_jax_kernel():
     np.testing.assert_allclose(float(chi2), float(ref[2]), rtol=0.05)
     np.testing.assert_allclose(A_last.numpy(), ref[1], rtol=0.05, atol=1e-3 * np.abs(ref[1]).max())
     assert 1 <= int(n_trials) <= 60
+
+
+@pytest.mark.parametrize("n,n_live,seed,far", [(128, 100, 12, False), (256, 180, 3, False),
+                                               (96, 60, 5, True)])
+def test_pose_lm_plain_reused_system_equals_rebuilt(n, n_live, seed, far):
+    """The contract K5's fused pass relies on: after a rejected trial only the
+    damping changes, so the system kept from the last accepted pose gives the
+    same ``T``, ``A_last``, chi2 and trial count, bit for bit, as one rebuilt
+    before every trial."""
+    pb = testing.pose_problem(n, n_live, seed=seed)
+    obs_uv = (pb["f_obs"][:, :2] / pb["f_obs"][:, 2:3]).astype(np.float32)
+    sic = (1.0 / (1 << pb["level"])).astype(np.float32)
+    T0 = pb["T0"].copy()
+    if far:
+        T0[0, 3] += 0.3                 # a start that needs rejected trials on the way
+    args = [t(a) for a in (T0, pb["p_world"], obs_uv, pb["grad"], sic, pb["is_edge"],
+                           pb["is_temp"], pb["valid"], np.float32(1.2e-3), np.float32(9e-4))]
+    rebuilt = pose_cuda.pose_lm_plain(*args, n_iter=12)
+    reused = pose_cuda.pose_lm_plain(*args, n_iter=12, reuse_system=True)
+    for a, b in zip(rebuilt[:3], reused[:3]):
+        assert torch.equal(a, b)
+    assert rebuilt[3] == reused[3]
+    # the loop ends on an iteration whose five trials were all rejected (or on
+    # its iteration limit), so rejected trials are part of every run
+    assert rebuilt[3] >= 6 or rebuilt[3] == 12
+    assert bool(torch.isfinite(reused[0]).all()) and float(reused[1].abs().max()) > 0
