@@ -14,8 +14,12 @@ life (``init_seeds``, sweeps, ``harvest_and_prune``) is run on the card and
 on the CPU from the same state.  Needs one CUDA device; exits non-zero
 without one.  Imports nothing of JAX.
 
+With ``--other-csrc DIR`` (another version of ``hso_tpu_torch/csrc`` with the
+same C interface, for instance the parent commit's) the ``kernels`` phase also
+prints how far K6 on the recorded call is from that version's K6.
+
 Phases (one JSON line each): ``device``, ``build`` (with the registers, spills
-and static shared memory of the two LM kernels), ``kernels`` (one line per
+and static shared memory of K3, K4, K5 and K6), ``kernels`` (one line per
 kernel and shape; K3 at each of its four levels and in its variant that leaves
 the windows in global memory), ``latency`` (the card's own figures for a block
 barrier, a cluster barrier, the reductions and the scalar steps of K3 and K5,
@@ -27,6 +31,7 @@ then the ``{"kernels": [...]}`` summary, the card line and, last, the
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import ctypes
 import io
@@ -407,6 +412,35 @@ def c_launch_plan(n: int, p: int) -> tuple:
     return out4[0], out4[1], bool(out4[2]), out4[3]
 
 
+def c_plan3(fn_name: str, *shape) -> tuple:
+    """A three-number launch plan (K6, K4) as the library computes it."""
+    out3 = (ctypes.c_int * 3)()
+    rc = getattr(_cuda_build.lib(), fn_name)(*shape, ctypes.byref(out3))
+    assert rc == 0, f"{fn_name}{shape}: the library has no launch plan"
+    return out3[0], out3[1], out3[2]
+
+
+def check_launch_plans() -> dict:
+    """The launch plans of K6 and K4 are the same pure function in Python and
+    in C, at the shapes of the main path and where shared memory cuts them."""
+    plans = {}
+    for shape in ((1024, 40, 40), (256, 48, 40), (48, 48, 40), (3, 40, 40), (16, 160, 64),
+                  (16, 236, 40)):
+        plan = epipolar_cuda.zmncc_launch_plan(*shape)
+        assert plan == c_plan3("hso_zmncc_launch_plan", *shape), \
+            f"K6 launch plans differ at {shape}: {plan}"
+        plans[f"zmncc{shape}"] = plan
+    for shape in ((336, 24), (1024, 40), (333, 24), (2, 40), (16, 200), (16, 240)):
+        plan = align_cuda.align_launch_plan(*shape)
+        assert plan == c_plan3("hso_align_launch_plan", *shape), \
+            f"K4 launch plans differ at {shape}: {plan}"
+        plans[f"align{shape}"] = plan
+    out3 = (ctypes.c_int * 3)()
+    assert _cuda_build.lib().hso_zmncc_launch_plan(4, 300, 40, ctypes.byref(out3)) == 1
+    assert _cuda_build.lib().hso_align_launch_plan(4, 300, ctypes.byref(out3)) == 1
+    return plans
+
+
 def check_coarse(calls, device, results):
     assert len(calls) == 4, f"expected 4 coarse levels on an IC frame, got {len(calls)}"
     heights = [kw["h_img"] for _, kw in calls]
@@ -488,45 +522,130 @@ def check_coarse(calls, device, results):
         library_ms=None, bound_ms=b_ms, bound_by=b_by)
 
 
+def compare_align(got, ref, what):
+    """K4's packed result against the plain one: the converged flags and the
+    set of non-finite positions exact, px 5e-3, and on converged rows NCC
+    1e-3, gradient 2e-2, chi2 1e-2 relative.  Returns the px difference."""
+    conv = ref[2] > 0.5
+    assert bool(((got[2] > 0.5) == conv).all()), f"{what}: converged flags differ"
+    lost = ~torch.isfinite(ref[:2])
+    assert bool((~torch.isfinite(got[:2]) == lost).all()), f"{what}: non-finite px differ"
+    d_px = float(torch.where(lost, torch.zeros_like(ref[:2]), got[:2] - ref[:2]).abs().max())
+    assert d_px <= 5e-3, f"{what}: px differ by {d_px}"
+    if bool(conv.any()):
+        assert float((got[3] - ref[3])[conv].abs().max()) <= 1e-3, f"{what}: ncc"
+        assert float((got[4:6] - ref[4:6])[:, conv].abs().max()) <= 2e-2, f"{what}: gradient"
+        rel = ((got[6] - ref[6]).abs() / (ref[6].abs() + 1.0))[conv]
+        assert float(rel.max()) <= 1e-2, f"{what}: chi2"
+    return d_px
+
+
+def align_iterations(is_edge, direction, ref_border, px_init, valid, windows,
+                     au, av, hs, ws, win: int, n_iter: int = 10) -> torch.Tensor:
+    """(S,) int32: the number of iterations after which each candidate's
+    result no longer changes: the smallest ``k`` for which the plain version
+    run with ``n_iter = k`` returns the bits it returns with ``n_iter``
+    (0 for a candidate that never moves).  That is where a loop that stops a
+    candidate once it is inactive leaves it."""
+    runs = [align_cuda.align_match_plain(is_edge, direction, ref_border, px_init, valid, windows,
+                                         au, av, hs, ws, win, k).view(torch.int32)
+            for k in range(n_iter + 1)]
+    its = torch.full((windows.shape[0],), n_iter, dtype=torch.int32, device=windows.device)
+    for k in range(n_iter - 1, -1, -1):
+        same = (runs[k] == runs[n_iter]).all(dim=0)
+        its = torch.where(same, torch.full_like(its, k), its)
+    return its
+
+
+LEFT_EDGE = "patches on the window's left edge"
+
+
+def align_variants(args):
+    """A recorded K4 call and what the kernel's branches make interesting:
+    ``valid`` all true, all corners, all edgelets, a batch that does not fill
+    its last block, and rows that start outside their window, on its very
+    edge, and at a NaN position; and a batch whose patches all start on their
+    window's left edge, so that a first update to the left carries a row out."""
+    is_edge, direction, ref_border, px_init, valid, windows, au, av, hs, ws = args
+    yield "as recorded", args
+    everyone = torch.ones_like(valid)
+    yield "valid all true", args[:4] + (everyone,) + args[5:]
+    yield "all corners", (torch.zeros_like(is_edge),) + args[1:4] + (everyone,) + args[5:]
+    yield "all edgelets", (torch.ones_like(is_edge),) + args[1:4] + (everyone,) + args[5:]
+    yield "S = 4 k + 1", tuple(a[:(a.shape[0] - 1) // 4 * 4 - 3].contiguous() for a in args)
+    px = px_init.clone()
+    anchor = torch.stack([au, av], dim=-1).float()
+    px[0] = anchor[0] - 20.0                     # outside from the first iteration on
+    px[1] = anchor[1] + 4.0                      # the patch starts on the window's corner
+    px[2] = float("nan")
+    px[3, 0] = float("inf")
+    yield "rows outside / on the edge / NaN", args[:3] + (px, everyone) + args[5:]
+    px = px_init.clone()
+    px[:, 0] = anchor[:, 0] + 4.05
+    yield LEFT_EDGE, args[:3] + (px, everyone) + args[5:]
+
+
 def check_align(calls, device, results, key="align_match", n_calls=2):
     assert len(calls) == n_calls, f"expected {n_calls} alignment passes, got {len(calls)}"
     worst = 0.0
-    n_conv = []
+    n_conv, n_left = [], []
     for args, kw in calls:
-        got = align_cuda.align_match_cuda(*args, **kw)
-        ref = align_cuda.align_match_plain(*args, **kw)
-        conv = ref[2] > 0.5
-        assert bool(((got[2] > 0.5) == conv).all()), "align: converged flags differ"
-        d_px = float((got[:2] - ref[:2]).abs().max())
-        assert d_px <= 5e-3, f"align px differ by {d_px}"
-        m = conv
-        if bool(m.any()):
-            assert float((got[3] - ref[3])[m].abs().max()) <= 1e-3, "align ncc"
-            assert float((got[4:6] - ref[4:6])[:, m].abs().max()) <= 2e-2, "align gradient"
-            rel = ((got[6] - ref[6]).abs() / (ref[6].abs() + 1.0))[m]
-            assert float(rel.max()) <= 1e-2, "align chi2"
-        worst = max(worst, d_px)
-        n_conv.append(int(conv.sum()))
+        for what, a in align_variants(args):
+            got = align_cuda.align_match_cuda(*a, **kw)
+            ref = align_cuda.align_match_plain(*a, **kw)
+            worst = max(worst, compare_align(got, ref, f"{key} ({what})"))
+            assert same_bits(got, align_cuda.align_match_cuda(*a, **kw)), \
+                f"{key} ({what}): second launch differs"
+            if what == "as recorded":
+                n_conv.append(int((ref[2] > 0.5).sum()))
+            if what == LEFT_EDGE:           # some rows are out after their first update
+                first = align_cuda.align_match_plain(*a, **{**kw, "n_iter": 1})
+                left = (first[0] - 4.0 - a[6].float() < 0.0) & (first[0] != a[3][:, 0])
+                n_left.append(int(left.sum()))
+                assert n_left[-1] > 0, f"{key}: no row left its window on iteration 1"
+                assert bool((ref[0][left] == first[0][left]).all()), \
+                    f"{key}: a row that left its window moved on"
         # adversarial: an empty mask returns px_init and converges nowhere
         a2 = list(args)
         a2[4] = torch.zeros_like(args[4])
         dead = align_cuda.align_match_cuda(*a2, **kw)
         assert not bool((dead[2] > 0.5).any())
         assert float((dead[:2].T - args[3]).abs().max()) <= 1e-6
+        # ... and all eight outputs are the plain version's (NCC 1e-3, gradient
+        # 2e-2 at px_init; chi2 and the mean are 0)
+        d_dead = (dead - align_cuda.align_match_plain(*a2, **kw)).abs().amax(dim=1).tolist()
+        assert d_dead[3] <= 1e-3 and max(d_dead[4:6]) <= 2e-2 and max(d_dead[6:]) == 0.0, \
+            f"{key}: empty mask differs from the plain version: {d_dead}"
     args, kw = calls[0]
     s = args[5].shape[0]
     win, n_iter = kw["win"], kw["n_iter"]
-    nbytes = s * (win * win + 100) * 4 + s * 16 + s * 16 + 2 * s + 8 * s * 4
-    flops = s * ((n_iter + 1) * 64 * 32 + 64 * 40)
-    b_ms, b_by = bound(nbytes, flops)
+    assert align_cuda.align_launch_plan(s, win) == c_plan3("hso_align_launch_plan", s, win)
+    # the work this call's data needs: windows of the live rows only, and of
+    # each the iterations after which the plain version's result stands
+    its = align_iterations(*args, **kw)
+    live = args[4]
+    n_live = int(live.sum())
+    evals = int((its[live] + 1).clamp(max=n_iter).sum())
+    nbytes = n_live * win * win * 4 + s * (100 * 4 + 16 + 16 + 2) + 8 * s * 4
+    flops = evals * 64 * 32 + s * 64 * 40
+    b_ms, _ = bound(nbytes, flops)
+    b_all, b_all_by = bound(s * (win * win + 100) * 4 + s * 34 + 8 * s * 4,
+                     s * ((n_iter + 1) * 64 * 32 + 64 * 40))
     also = f" (also {calls[1][0][5].shape[0]})" if len(calls) > 1 else ""
+    launch, _ = align_cuda.align_match_prepare(*args, **kw)
+    # `ms` times the wrapper the step calls, `bound_ms` counts all S rows and
+    # all iterations, as in every earlier reading of this kernel; the bare
+    # launch and the bound of the work this call's data needs stand beside them
     results[key] = dict(
-        max_abs_err=worst, tol=5e-3, shape=f"S={s}{also} win={win} n_iter={n_iter}",
-        converged=n_conv,
+        max_abs_err=worst, tol=5e-3,
+        shape=f"S={s}{also} win={win} n_iter={n_iter} ({n_live} rows valid)",
+        converged=n_conv, rows_valid=n_live, rows_out_after_first_update=n_left,
+        iterations_histogram=torch.bincount(its[live].long(), minlength=n_iter + 1).tolist(),
         ms=time_ms(lambda: align_cuda.align_match_cuda(*args, **kw), device),
+        launch_ms=time_ms(launch, device),
         plain_ms=time_ms(lambda: align_cuda.align_match_plain(*args, **kw), device,
                          inner=2),
-        library_ms=None, bound_ms=b_ms, bound_by=b_by)
+        library_ms=None, bound_ms=b_all, bound_by=b_all_by, bound_work_done_ms=b_ms)
 
 
 def check_pose(calls, device, results):
@@ -640,34 +759,79 @@ def compare_line_scores(got, ref, what):
     return worst
 
 
-def check_zmncc(calls, cur_pyr, device, results):
+def line_work(args) -> tuple:
+    """What a K6 call's data asks of the kernel: (rows with a step inside,
+    map entries their lines read), by the kernel's own bounds test."""
+    windows, _, su0, sv0, du, dv, n_line, au, av, hs, ws, n_steps = args
+    cw = windows.shape[-1] - 7
+    ks = torch.arange(n_steps, dtype=torch.float32, device=windows.device)
+    su = su0[:, None] + du[:, None] * ks
+    sv = sv0[:, None] + dv[:, None] * ks
+    pu, pv = su + 4.0 + au[:, None].float(), sv + 4.0 + av[:, None].float()
+    inside = ((ks <= n_line[:, None].float()) & (su >= 0.0) & (su <= cw - 1.0) & (sv >= 0.0)
+              & (sv <= cw - 1.0) & (pu - 4.0 >= 0.0) & (pu + 4.0 <= ws[:, None].float() - 1.0)
+              & (pv - 4.0 >= 0.0) & (pv + 4.0 <= hs[:, None].float() - 1.0))
+    rows = torch.where(sv == torch.floor(sv), 1, 2)
+    cols = torch.where(torch.floor(su) + 1.0 < cw, 2, 1)
+    return int(inside.any(dim=1).sum()), int((inside * rows * cols).sum())
+
+
+def check_zmncc(calls, cur_pyr, device, results, other=None):
     assert len(calls) == 1, f"expected 1 epipolar search per frame, got {len(calls)}"
     args, kw = calls[0]
     n_steps = args[11]
     s, ew = args[0].shape[0], args[0].shape[-1]
     assert ew == epipolar.EW and n_steps == 40
+    assert epipolar_cuda.zmncc_launch_plan(s, ew, n_steps) == \
+        c_plan3("hso_zmncc_launch_plan", s, ew, n_steps)
     got = epipolar_cuda.zmncc_line_scores_cuda(*args)
     ref = epipolar_cuda.zmncc_line_scores_plain(*args)
     worst = compare_line_scores(got, ref, "zmncc (recorded call)")
     n_finite = int(torch.isfinite(ref[0]).sum())
+    n_live, n_entries = line_work(args)
+    assert n_live >= n_finite
     again = epipolar_cuda.zmncc_line_scores_cuda(*args)
     for a, b in zip(got, again):
         assert torch.equal(a.view(torch.int32), b.view(torch.int32)), "zmncc: second run differs"
+    vs_other = None
+    if other is not None:                   # another version of the kernel, same call
+        with _cuda_build.using_lib(other):
+            got_o = epipolar_cuda.zmncc_line_scores_cuda(*args)
+        compare_line_scores(got, got_o, "zmncc (this version against the other)")
+        m = torch.isfinite(got_o[0])
+        vs_other = float((got[0] - got_o[0])[m].abs().max())
 
     # a wider window (EW 48) on seeded noise windows with the adversarial rows:
     # low contrast, a segment wholly outside the window, a segment ending on
-    # the last map column, a window at the image corner, a zero direction; and
-    # one non-finite window entry, which must turn its row (only) into NaN
+    # the last map column, a window at the image corner, a zero direction; a
+    # non-finite window entry (rows 9, 10: ON or OFF the line, it must turn
+    # its row, and only it, into NaN); a huge entry that overflows (row 11:
+    # NaN from both) and one that does not (row 12, off the line: finite from
+    # both, through the kernel's whole-map scan); and the upper half of the
+    # rows with every step outside the window: (-inf, -inf, 0), the window unread
     case = testing.line_score_cases(s=256, ew=48, n_steps=n_steps, seed=0)
     case["windows"][9, 3, 3] = np.inf
+    for row in (10, 11, 12):                # a horizontal segment in the window's middle
+        case["su0"][row], case["sv0"][row] = 20.0, 20.3
+        case["dir_u"][row], case["dir_v"][row], case["n_line"][row] = 1.0, 0.0, 10
+    case["windows"][10, 0, 0] = np.nan
+    case["windows"][11, 5, 5] = 1e20
+    case["windows"][12, 0, 0] = 1e15
+    case["su0"][128:], case["dir_u"][128:], case["dir_v"][128:] = -60.0, -1.0, 0.0
     a48 = [torch.as_tensor(case[k], device=device) for k in ZMNCC_ORDER]
     got48 = epipolar_cuda.zmncc_line_scores_cuda(*a48, n_steps)
     ref48 = epipolar_cuda.zmncc_line_scores_plain(*a48, n_steps)
     worst = max(worst, compare_line_scores(got48, ref48, "zmncc (EW 48)"))
+    again48 = epipolar_cuda.zmncc_line_scores_cuda(*a48, n_steps)
+    assert all(same_bits(a, b) for a, b in zip(got48, again48)), "zmncc (EW 48): second run"
     for out in (got48, ref48):
         assert bool(torch.isneginf(out[0][1])) and bool(torch.isneginf(out[1][1]))
         assert int(out[2][1]) == 0
-        assert bool(torch.isnan(out[0][9])) and int(torch.isnan(out[0]).sum()) == 1
+        assert bool(torch.isneginf(out[0][128:]).all()) and bool(torch.isneginf(out[1][128:]).all())
+        assert not bool(out[2][128:].any())
+        assert bool(torch.isnan(out[0][[9, 10, 11]]).all()) and int(torch.isnan(out[0]).sum()) == 3
+        assert bool(torch.isfinite(out[0][12]))
+    assert line_work(tuple(a48) + (n_steps,))[0] <= 127
 
     # the search around it on the real pyramid, 48-px windows: a window clipped
     # at the image corner, a zero-length segment, a dead slot
@@ -690,18 +854,28 @@ def check_zmncc(calls, cur_pyr, device, results):
     worst = max(worst, float((out_k["score_best"] - out_p["score_best"])[okm].abs().max()))
     assert worst <= 2e-4
 
+    # `bound_ms` is the dense map over all S rows, as in every earlier reading
+    # of this kernel; beside it the bound of what this call's data needs: the
+    # windows of the rows with a step inside and the map entries their lines
+    # read (about 320 operations each: 64 products and their sum, two 64-term
+    # box sums)
+    nbytes = n_live * (ew * ew + 64) * 4 + s * 9 * 4 + s * 3 * 4
+    flops = n_entries * 320 + n_live * (n_steps * 30 + 400)
+    b_ms, _ = bound(nbytes, flops)
     ow = ew - 7
-    nbytes = s * (ew * ew + 64) * 4 + s * 9 * 4 + s * 3 * 4
-    flops = s * (ew * ow * 22 + ow * ow * (14 + 127 + 8) + n_steps * 30)
-    b_ms, b_by = bound(nbytes, flops)
+    b_all, b_all_by = bound(s * (ew * ew + 64) * 4 + s * 12 * 4,
+                     s * (ew * ow * 22 + ow * ow * (14 + 127 + 8) + n_steps * 30))
+    launch, _ = epipolar_cuda.zmncc_line_scores_prepare(*args)
     results["zmncc_line_scores"] = dict(
         max_abs_err=worst, tol=2e-4,
-        shape=f"S={s} EW={ew} n_steps={n_steps} ({n_finite} rows with a finite best; "
-        "also S=256 EW=48)",
+        shape=f"S={s} EW={ew} n_steps={n_steps} ({n_live} rows with a step inside, "
+        f"{n_finite} with a finite best, {n_entries} map entries read; also S=256 EW=48)",
+        rows_live=n_live, map_entries_read=n_entries, vs_other_version=vs_other,
         ms=time_ms(lambda: epipolar_cuda.zmncc_line_scores_cuda(*args), device),
+        launch_ms=time_ms(launch, device),
         plain_ms=time_ms(lambda: epipolar_cuda.zmncc_line_scores_plain(*args), device,
                          inner=2),
-        library_ms=None, bound_ms=b_ms, bound_by=b_by)
+        library_ms=None, bound_ms=b_all, bound_by=b_all_by, bound_work_done_ms=b_ms)
 
 
 # ------------------------------------------------------------------ latency phase
@@ -888,14 +1062,16 @@ def track_ate(recs, gt_poses) -> float:
     return ate(est, gt, with_scale=True).rmse
 
 
-def lm_kernel_resources() -> dict:
+def kernel_resources() -> dict:
     """Registers, stack, spills and static shared memory of K3 (both
-    instances) and K5, as ``ptxas -v`` printed them in the build."""
+    instances), K4, K5 and K6, as ``ptxas -v`` printed them in the build."""
     names = {"coarse_level_ic_kernelILb1": "coarse_level_ic_kernel<windows resident>",
              "coarse_level_ic_kernelILb0": "coarse_level_ic_kernel<windows in global memory>",
-             "pose_lm_kernel": "pose_lm_kernel"}
+             "pose_lm_kernel": "pose_lm_kernel",
+             "align_match_kernel": "align_match_kernel",
+             "zmncc_line_kernel": "zmncc_line_kernel"}
     found = {}
-    for src in ("coarse.cu", "pose.cu"):
+    for src in ("coarse.cu", "pose.cu", "align.cu", "epipolar.cu"):
         for entry, res in _cuda_build.kernel_resources(_cuda_build.BUILD_LOG[src]).items():
             for part, name in names.items():
                 if part in entry:
@@ -905,6 +1081,10 @@ def lm_kernel_resources() -> dict:
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--other-csrc", default="",
+                    help="another version of hso_tpu_torch/csrc to hold K6 against")
+    cli = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
               file=sys.stderr)
@@ -924,7 +1104,11 @@ def main() -> int:
         _cuda_build.build(verbose=True)
     _cuda_build.lib()
     emit("build", seconds=round(time.perf_counter() - t0, 2),
-         library=os.path.relpath(_cuda_build.build(), ROOT), lm_kernels=lm_kernel_resources())
+         library=os.path.relpath(_cuda_build.build(), ROOT), resources=kernel_resources(),
+         launch_plans=check_launch_plans())
+    other = None
+    if cli.other_csrc:
+        other = _cuda_build.load(_cuda_build.build(csrc_dir=os.path.abspath(cli.other_csrc)))
 
     cam, cfg = bench_camera(), Config()
     track_step, grid, n_obs_pad = build_step(cam, cfg, device)
@@ -950,7 +1134,7 @@ def main() -> int:
     check_coarse(rec["coarse"], device, results)
     check_align(rec["align"], device, results)
     check_pose(rec["pose"], device, results)
-    check_zmncc(rec["zmncc"], out0["data"]["pyr"], device, results)
+    check_zmncc(rec["zmncc"], out0["data"]["pyr"], device, results, other)
     check_pack_sweep(rec["pack"], device, results)
     check_align(rec["seed_align"], device, results, key="align_match@sweep", n_calls=1)
     rec1 = Recorder(window_cuda.extract_windows)
@@ -1159,7 +1343,8 @@ def main() -> int:
             replaces=KERNEL_META[name][1], launches=n, max_abs_err=r["max_abs_err"],
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"],
-            **({"latency_floor_ms": r["latency_floor_ms"]} if "latency_floor_ms" in r else {})))
+            **{k: r[k] for k in ("latency_floor_ms", "launch_ms", "bound_work_done_ms")
+               if k in r}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

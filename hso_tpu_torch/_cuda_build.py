@@ -16,6 +16,7 @@ back to another implementation.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -155,6 +156,8 @@ _SIGNATURES = {
     "hso_pose_lm": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P],
     "hso_zmncc_line_scores": [_P] * 11 + [_I, _I, _I] + [_P, _P, _P, _P],
     "hso_coarse_launch_plan": [_I, _I, ctypes.POINTER(_I * 4)],
+    "hso_zmncc_launch_plan": [_I, _I, _I, ctypes.POINTER(_I * 3)],
+    "hso_align_launch_plan": [_I, _I, ctypes.POINTER(_I * 3)],
     "hso_coarse_plan_override": [_I, _I],
     "hso_probe_latency": [_I, _I, _I, _I, _P, _P],
 }
@@ -178,6 +181,18 @@ def lib() -> ctypes.CDLL:
     if _lib is None:
         _lib = load(build())
     return _lib
+
+
+@contextlib.contextmanager
+def using_lib(handle: ctypes.CDLL):
+    """Route every wrapper to another build of the kernels (an earlier version
+    of the sources, to be held against this one) while the block runs."""
+    global _lib
+    old, _lib = _lib, handle
+    try:
+        yield
+    finally:
+        _lib = old
 
 
 def check(err: int, name: str) -> None:

@@ -322,18 +322,9 @@ template <bool RESIDENT>
 cudaError_t launch(const Plan& pl, const Args& A, const PatternTable& pat, const float* T0,
                    const float* sc, int n_iter, float* out, cudaStream_t stream) {
     auto kernel = coarse_level_ic_kernel<RESIDENT>;
-    // the opt-in above 48 KB belongs to this instance on this device; it is
-    // raised only when a launch needs more than any before it
-    static size_t allowed[64] = {};
-    int dev = 0;
-    cudaError_t e = cudaGetDevice(&dev);
+    static hso::SmemOptIn opted;       // one per template instance
+    const cudaError_t e = hso::allow_dynamic_smem(kernel, pl.smem, opted);
     if (e != cudaSuccess) return e;
-    if (dev < 0 || dev >= 64 || pl.smem > allowed[dev]) {
-        e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 (int)pl.smem);
-        if (e != cudaSuccess) return e;
-        if (dev >= 0 && dev < 64) allowed[dev] = pl.smem;
-    }
     cudaLaunchConfig_t cfg = {};
     cfg.gridDim = dim3(pl.cluster);
     cfg.blockDim = dim3(pl.threads);

@@ -1,6 +1,7 @@
 // Shared device helpers of the hand-written kernels: deterministic block
 // reductions, small Cholesky solves in registers, SE(3) exponential and 3x4
-// products, and the scalar steps of the two LM kernels.
+// products, and the scalar steps of the two LM kernels; on the host side the
+// opt-in to more than 48 KB of dynamic shared memory.
 //
 // Determinism: every sum is taken in a fixed order (per-thread partials laid
 // out in shared memory, a serial pass in thread order, then a shuffle
@@ -57,6 +58,27 @@ struct TransposeSum<1, OFF> {
 template <int M>
 __device__ __forceinline__ float warp_transpose_sum(const float (&v)[M]) {
     return TransposeSum<M, 16>::run(v, threadIdx.x & 31u);
+}
+
+// Host side: let `kernel` ask for `bytes` of dynamic shared memory.  Up to
+// 48 KB needs nothing; above it the kernel opts in, once per device and only
+// when a launch needs more than any before it.  `seen` is the caller's record
+// for this kernel (a function-local static; one per template instance).
+struct SmemOptIn {
+    size_t allowed[64] = {};
+};
+
+template <class Kernel>
+inline cudaError_t allow_dynamic_smem(Kernel kernel, size_t bytes, SmemOptIn& seen) {
+    if (bytes <= 48 * 1024) return cudaSuccess;
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e != cudaSuccess) return e;
+    const bool known = dev >= 0 && dev < 64;
+    if (known && bytes <= seen.allowed[dev]) return cudaSuccess;
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (e == cudaSuccess && known) seen.allowed[dev] = bytes;
+    return e;
 }
 
 __host__ __device__ constexpr int next_pow2(int n) { return n <= 1 ? 1 : 2 * next_pow2((n + 1) / 2); }

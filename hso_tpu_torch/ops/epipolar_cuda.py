@@ -11,6 +11,13 @@ second-best at step distance > 1 and the first step that reaches the best.
 Dispatch rule: a CPU tensor takes the plain version, a CUDA tensor launches
 the kernel or raises.
 
+The kernel gives a seed to a group of 64 threads, several groups to a block
+(:func:`zmncc_launch_plan`), leaves a seed with no step inside its window
+before anything of it is read, and computes only the map entries its line reads;
+a seed whose window or template holds a non-finite or huge value scans its
+whole map first, so that the dense form's rule (one non-finite map entry
+turns every unmasked score of the seed into NaN) holds exactly.
+
 The plain version fixes the order of every sum that feeds the two
 cancelling differences (``Σt² − (Σt)²/64`` and ``corr − mean·Σt``): box
 sums as separable shifted adds left to right then top to bottom, the
@@ -26,6 +33,26 @@ import torch
 LAUNCHES = {"zmncc_line_scores": 0}
 
 PATCH = 8
+GROUP = 64                #: threads of one seed
+SEEDS_PER_BLOCK = 2       #: seed groups of one block, while shared memory allows
+SMEM_MAX = 232448         #: dynamic shared memory a block may ask for (227 KB)
+
+
+def zmncc_launch_plan(s: int, ew: int, n_steps: int) -> tuple:
+    """The launch of K6 from the shape alone: ``(seeds_per_block, threads,
+    smem_bytes)``.  A seed holds its window, four map entries and one score
+    per step and eight flag words in shared memory, rounded to 16 bytes; a
+    block takes ``SEEDS_PER_BLOCK`` seeds (no more than there are), fewer
+    while they do not fit.  Raises when one seed does not fit.  Mirrors
+    ``plan_of`` in ``csrc/epipolar.cu``."""
+    seed_bytes = (ew * ew + 5 * n_steps + 8 + 3) // 4 * 4 * 4
+    seeds = max(1, min(SEEDS_PER_BLOCK, s))
+    while seeds > 1 and seeds * seed_bytes > SMEM_MAX:
+        seeds -= 1
+    if seeds * seed_bytes > SMEM_MAX:
+        raise ValueError(f"a {ew}x{ew} search window with {n_steps} steps needs {seed_bytes} "
+                         f"bytes of shared memory, more than {SMEM_MAX}")
+    return seeds, GROUP * seeds, seeds * seed_bytes
 
 
 def _box_sums(x: torch.Tensor, k: int) -> torch.Tensor:
@@ -131,10 +158,13 @@ def zmncc_line_scores_plain(windows, ref_patch, su0, sv0, dir_u, dir_v, n_line,
     return score_best, score_second, k_best.to(torch.int32)
 
 
-def zmncc_line_scores_cuda(windows, ref_patch, su0, sv0, dir_u, dir_v, n_line,
-                           au, av, hs, ws, n_steps: int):
-    """K6: launch ``hso_zmncc_line_scores`` on the current stream (one thread
-    block per seed)."""
+def zmncc_line_scores_prepare(windows, ref_patch, su0, sv0, dir_u, dir_v, n_line,
+                              au, av, hs, ws, n_steps: int):
+    """Check the tensors and prepare one launch of K6: returns ``(launch,
+    out)`` with ``out = (score_best, score_second, k_best)``.  ``launch()``
+    enqueues ``hso_zmncc_line_scores`` on the stream that was current here
+    and adds one to the count (nothing is enqueued for S = 0); a timing loop
+    calls it again and again without the wrapper's tensor work."""
     from hso_tpu_torch import _cuda_build
 
     _want = _cuda_build.check_tensor
@@ -148,18 +178,34 @@ def zmncc_line_scores_cuda(windows, ref_patch, su0, sv0, dir_u, dir_v, n_line,
         _want(t, torch.float32, (s,), dev, name)
     for name, t in (("n_line", n_line), ("au", au), ("av", av), ("hs", hs), ("ws", ws)):
         _want(t, torch.int32, (s,), dev, name)
+    zmncc_launch_plan(s, ew, n_steps)                 # raises beyond shared memory
     scores = torch.empty((2, s), dtype=torch.float32, device=dev)
     k_best = torch.empty((s,), dtype=torch.int32, device=dev)
+    out = (scores[0], scores[1], k_best)
     if s == 0:
-        return scores[0], scores[1], k_best
-    err = _cuda_build.lib().hso_zmncc_line_scores(
-        windows.data_ptr(), ref_patch.data_ptr(), su0.data_ptr(), sv0.data_ptr(),
-        dir_u.data_ptr(), dir_v.data_ptr(), n_line.data_ptr(), au.data_ptr(), av.data_ptr(),
-        hs.data_ptr(), ws.data_ptr(), s, ew, n_steps, scores[0].data_ptr(),
-        scores[1].data_ptr(), k_best.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-    _cuda_build.check(err, "hso_zmncc_line_scores")
-    LAUNCHES["zmncc_line_scores"] += 1
-    return scores[0], scores[1], k_best
+        return (lambda: None), out
+    fn = _cuda_build.lib().hso_zmncc_line_scores
+    # the tuple keeps every tensor the kernel reads alive as long as `launch`
+    alive = (windows, ref_patch, su0, sv0, dir_u, dir_v, n_line, au, av, hs, ws, scores, k_best)
+    args = tuple(t.data_ptr() for t in alive[:11]) + (
+        s, ew, n_steps, scores[0].data_ptr(), scores[1].data_ptr(), k_best.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+
+    def launch(_alive=alive):
+        _cuda_build.check(fn(*args), "hso_zmncc_line_scores")
+        LAUNCHES["zmncc_line_scores"] += 1
+
+    return launch, out
+
+
+def zmncc_line_scores_cuda(windows, ref_patch, su0, sv0, dir_u, dir_v, n_line,
+                           au, av, hs, ws, n_steps: int):
+    """K6: launch ``hso_zmncc_line_scores`` on the current stream (a group of
+    ``GROUP`` threads per seed, ``zmncc_launch_plan`` seeds per block)."""
+    launch, out = zmncc_line_scores_prepare(windows, ref_patch, su0, sv0, dir_u, dir_v, n_line,
+                                            au, av, hs, ws, n_steps)
+    launch()
+    return out
 
 
 def zmncc_line_scores(windows, ref_patch, su0, sv0, dir_u, dir_v, n_line,

@@ -43,20 +43,10 @@ ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)
 sys.path.insert(0, ROOT)
 
 from hso_tpu_torch import _cuda_build  # noqa: E402
+from hso_tpu_torch._cuda_build import using_lib  # noqa: E402
 from hso_tpu_torch.track import coarse_cuda, pose_cuda  # noqa: E402
 
 VARIANTS = [(c, t) for c in (1, 2, 4, 8) for t in (128, 256, 512)]
-
-
-@contextlib.contextmanager
-def using_lib(handle):
-    """Route the wrappers to another build of the kernels."""
-    old = _cuda_build._lib
-    _cuda_build._lib = handle
-    try:
-        yield
-    finally:
-        _cuda_build._lib = old
 
 
 def graph_ms(time_ms, prepare, device, n: int = 20) -> float:
@@ -79,15 +69,32 @@ def graph_ms(time_ms, prepare, device, n: int = 20) -> float:
     return time_ms(graph.replay, device, inner=1) / n
 
 
-def build_verbose(csrc_dir: str):
+def build_verbose(csrc_dir: str, sources=("coarse.cu", "pose.cu")):
     """Build one version of the sources; returns (library handle, resources
-    of the LM kernels by mangled entry name)."""
+    of the kernels of ``sources`` by mangled entry name)."""
     with contextlib.redirect_stdout(io.StringIO()):
         so = _cuda_build.build(verbose=True, csrc_dir=csrc_dir)
     res = {}
-    for src in ("coarse.cu", "pose.cu"):
+    for src in sources:
         res.update(_cuda_build.kernel_resources(_cuda_build.BUILD_LOG[src]))
     return _cuda_build.load(so), res
+
+
+def card_line() -> str:
+    """The card's name and power limit as ``nvidia-smi`` prints them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0].strip()
+
+
+def write_out(doc: dict, path: str) -> None:
+    """Print the result as one JSON line and, with a path, write it there."""
+    text = json.dumps(doc)
+    print(text, flush=True)
+    if path:
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        with open(path, "w") as fh:
+            fh.write(text + "\n")
 
 
 def main() -> int:
@@ -101,9 +108,7 @@ def main() -> int:
         print("time_lm_kernels: no CUDA device", file=sys.stderr)
         return 2
     device = torch.device("cuda", 0)
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0].strip()
+    card = card_line()
 
     this, res_this = build_verbose(_cuda_build.CSRC_DIR)
     doc = {"card": card, "resources": {"this": res_this}}
@@ -195,12 +200,7 @@ def main() -> int:
         doc["latency"] = cs.latency_floor(results, device)
         del doc["latency"]["latency_floor_ms"]      # per evaluation here: see chip_smoke.py
 
-    text = json.dumps(doc)
-    print(text, flush=True)
-    if args.out:
-        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
-        with open(args.out, "w") as fh:
-            fh.write(text + "\n")
+    write_out(doc, args.out)
     return 0
 
 

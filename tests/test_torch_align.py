@@ -267,3 +267,119 @@ def test_align2d_cuts_its_own_windows(pyr, problem):
     assert len(rows) > 5 and ref["converged"].sum() > 3
     np.testing.assert_array_equal(got["converged"].numpy(), ref["converged"])
     np.testing.assert_allclose(got["px"].numpy(), ref["px"], atol=5e-3)
+
+
+def _align_loop_that_breaks(is_edge, direction, ref_border, px_init, valid, windows,
+                            au, av, hs, ws, win, n_iter):
+    """The alignment as a loop that STOPS: every row on its own, left at the
+    top of the iteration that finds its patch outside the image or its window
+    (or its position not finite), or right after the update that was small
+    enough to converge; a row with ``valid`` false never enters.  Written from
+    the pieces of ``ops/align`` and the solver the row's kind needs, nothing
+    else.  Returns the packed (8, S) result and, per row, the number of
+    updates it took."""
+    from hso_tpu_torch.math.linalg_small import inv2x2, inv3x3
+    from hso_tpu_torch.ops import align as al
+
+    n = ref_border.shape[0]
+    ref, dx, dy = al._template_grads(ref_border)
+    ones = torch.ones_like(dx)
+    d = direction / torch.clamp_min(torch.linalg.norm(direction, dim=-1, keepdim=True), 1e-9)
+    jd = dx * d[:, None, None, 0] + dy * d[:, None, None, 1]
+    wgt2 = torch.sqrt(250.0 / (250.0 + dx * dx + dy * dy))
+    wgt1 = torch.sqrt(250.0 / (250.0 + jd * jd))
+    j3 = torch.stack([dx, dy, ones], dim=-1)
+    j2 = torch.stack([jd, ones], dim=-1)
+    H3 = torch.sum(j3[..., :, None] * j3[..., None, :] * wgt2[..., None, None], dim=(1, 2))
+    H2 = torch.sum(j2[..., :, None] * j2[..., None, :] * wgt1[..., None, None], dim=(1, 2))
+    Hinv3 = inv3x3(H3 * (torch.eye(3) * 1e-3 + 1.0))
+    Hinv2 = inv2x2(H2 * (torch.eye(2) * 1e-3 + 1.0))
+    auf, avf = au.to(torch.float32), av.to(torch.float32)
+
+    u, v = px_init[:, 0].clone(), px_init[:, 1].clone()
+    mean, chi2 = torch.zeros(n), torch.zeros(n)
+    conv = torch.zeros(n, dtype=torch.bool)
+    updates = torch.zeros(n, dtype=torch.int32)
+    for r in range(n):
+        if not bool(valid[r]):
+            continue
+        row = slice(r, r + 1)
+        edge = bool(is_edge[r])
+        jac, wgt, Hinv = (j2, wgt1, Hinv2) if edge else (j3, wgt2, Hinv3)
+        for _ in range(n_iter):
+            patch, rel_u, rel_v = al._sample(windows[row], auf[row], avf[row], u[row], v[row])
+            inb = al._in_image(u[row], v[row], hs[row], ws[row]) \
+                & al._in_window(rel_u, win) & al._in_window(rel_v, win)
+            if not bool(inb & torch.isfinite(u[row]) & torch.isfinite(v[row])):
+                break                                   # left: the state stays as it is
+            res = patch - ref[row] + mean[row, None, None]
+            chi2[row] = torch.sum(res * res * wgt[row], dim=(1, 2))
+            jres = -torch.sum((res * wgt[row])[..., None] * jac[row], dim=(1, 2))
+            upd = torch.sum(Hinv[row] * jres[:, None, :], dim=-1)[0]
+            if edge:
+                u[r], v[r], mean[r] = u[r] + upd[0] * d[r, 0], v[r] + upd[0] * d[r, 1], \
+                    mean[r] + upd[1]
+                small = bool(upd[0] ** 2 < 0.01 * 0.01)
+            else:
+                u[r], v[r], mean[r] = u[r] + upd[0], v[r] + upd[1], mean[r] + upd[2]
+                small = bool(upd[0] ** 2 + upd[1] ** 2 < 0.03 * 0.03)
+            updates[r] += 1
+            if small:
+                conv[r] = True
+                break                                   # converged: nothing moves from here on
+    conv = conv & (chi2 <= 1000.0 * 64)
+    final_patch, _, _ = al._sample(windows, auf, avf, u, v)
+    score = ncc(ref_border[:, 1:9, 1:9], final_patch)
+    gx, gy = sample_gradient_in_windows(windows, au, av, u, v)
+    return torch.stack([u, v, conv.to(torch.float32), score, gx, gy, chi2, mean], dim=0), updates
+
+
+@pytest.mark.parametrize("mask", ["as given", "all valid", "none valid"])
+def test_align_plain_keeps_its_result_once_a_row_is_inactive(problem, mask):
+    """A loop that leaves a candidate once it is inactive (converged, left its
+    window or the image, or never valid) returns the bits of the plain
+    version, which runs all ``n_iter`` iterations under the mask; and it
+    leaves every row after the number of updates at which the plain version's
+    result stops changing."""
+    import chip_smoke as cs
+
+    valid = {"as given": problem["valid"], "all valid": np.ones_like(problem["valid"]),
+             "none valid": np.zeros_like(problem["valid"])}[mask]
+    args = _torch_args(problem, valid)
+    full = align_cuda.align_match_plain(*args, win=24, n_iter=10).numpy().view(np.int32)
+    broke, updates = _align_loop_that_breaks(*args, win=24, n_iter=10)
+    np.testing.assert_array_equal(broke.numpy().view(np.int32), full)
+    its = cs.align_iterations(*args, win=24, n_iter=10).numpy()
+    np.testing.assert_array_equal(updates.numpy(), its)
+    for k in range(11):
+        out_k = align_cuda.align_match_plain(*args, win=24, n_iter=k).numpy().view(np.int32)
+        done = its <= k                     # a loop that breaks has left these rows
+        np.testing.assert_array_equal(out_k[:, done], full[:, done])
+        moving = its > k
+        assert (out_k[:, moving] != full[:, moving]).any(axis=0).all()
+    if mask == "none valid":
+        assert (its == 0).all()
+    else:
+        assert its[2 if mask == "as given" else 1] == 0         # dead slot / patch off the image
+        assert 0 < np.median(its[its > 0]) < 10 and its.max() <= 10
+        # rows stop for every reason: some converge, some leave, some run out
+        conv = full.view(np.float32)[2] > 0.5
+        assert conv.any() and (~conv & (its < 10) & valid).any()
+
+
+@pytest.mark.parametrize("shape, plan", [
+    ((336, 24), (4, 128, 9216)),            # the matcher's passes
+    ((1024, 40), (4, 128, 25600)),          # the sweep: 8 blocks = 32 warps in 227 KB
+    ((3, 24), (3, 96, 6912)),               # no more warps than candidates
+    ((64, 25), (4, 128, 10048)),            # 625 floats rounded up to 16 bytes
+    ((64, 150), (2, 64, 180000)),           # three such windows do not fit 227 KB
+])
+def test_align_launch_plan(shape, plan):
+    assert align_cuda.align_launch_plan(*shape) == plan
+    assert align_cuda.align_launch_plan(*shape) == plan         # a pure function
+
+
+def test_align_launch_plan_raises_beyond_shared_memory():
+    assert align_cuda.align_launch_plan(4, 240)[2] <= align_cuda.SMEM_MAX
+    with pytest.raises(ValueError):
+        align_cuda.align_launch_plan(4, 300)

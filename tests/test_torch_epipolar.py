@@ -260,3 +260,95 @@ def test_triangulate_depth_matches_jax():
     assert not ok[0] and ok[1:].all()
     np.testing.assert_allclose(z[ok], z_ref[ok], rtol=1e-6)
     np.testing.assert_allclose(z[1:], depth[1:], rtol=1e-3)
+
+
+ORDER = ("windows", "ref_patch", "su0", "sv0", "dir_u", "dir_v", "n_line", "au", "av", "hs", "ws")
+#: rows of `contract_case` and what each pins (row: reason it has no step inside / what
+#: poisons it); every such row also carries a NaN in its window
+NO_STEP_ROWS = {"segment outside the window": 6, "patch outside the image": 7,
+                "non-finite geometry": 8, "negative step count": 9}
+POISONED_ROWS = {"inf off the line": 10, "nan off the line": 11, "nan on the line": 12,
+                 "overflowing entry off the line": 13, "inf in the template": 14}
+
+
+@pytest.fixture(scope="module")
+def contract_case():
+    """EW 40, S = 24: the rows a kernel that leaves early and scores only the
+    entries on the line must still get right, through the plain version and
+    through the JAX kernel (interpreted)."""
+    case = testing.line_score_cases(s=24, ew=40, n_steps=N_STEPS, seed=5)
+    for row in list(NO_STEP_ROWS.values()) + list(POISONED_ROWS.values()) + [15]:
+        # a horizontal segment through the window's middle: map rows 20 and 21,
+        # map columns 12..23, window pixels (12..30, 20..28)
+        case["su0"][row], case["sv0"][row] = 12.0, 20.3
+        case["dir_u"][row], case["dir_v"][row], case["n_line"][row] = 1.0, 0.0, 10
+    r = NO_STEP_ROWS
+    case["su0"][r["segment outside the window"]] = -60.0
+    case["dir_u"][r["segment outside the window"]] = -1.0
+    case["hs"][r["patch outside the image"]] = 10
+    case["ws"][r["patch outside the image"]] = 10
+    case["su0"][r["non-finite geometry"]] = np.nan
+    case["n_line"][r["negative step count"]] = -1
+    for row in r.values():
+        case["windows"][row, 22, 15] = np.nan
+    p = POISONED_ROWS
+    case["windows"][p["inf off the line"], 0, 0] = np.inf
+    case["windows"][p["nan off the line"], 39, 39] = np.nan
+    case["windows"][p["nan on the line"], 24, 20] = np.nan
+    case["windows"][p["overflowing entry off the line"], 2, 35] = 1e20
+    case["ref_patch"][p["inf in the template"], 3, 3] = np.inf
+    case["windows"][15, 0, 0] = 1e15            # huge but harmless: off the line, no overflow
+    with forced_interpret():
+        ref = [np.asarray(x) for x in zmncc_line_scores_tpu(
+            *[jnp.asarray(case[k]) for k in ORDER], n_steps=N_STEPS)]
+    got = [x.numpy() for x in epipolar_cuda.zmncc_line_scores_plain(
+        *[t(case[k]) for k in ORDER], N_STEPS)]
+    return got, ref
+
+
+@pytest.mark.parametrize("why", list(NO_STEP_ROWS))
+def test_row_without_a_step_inside(contract_case, why):
+    """(−inf, −inf, 0) from the plain version and from the JAX kernel, whatever
+    the row's window holds (here a NaN in the middle of it)."""
+    row = NO_STEP_ROWS[why]
+    for best, second, k_best in contract_case:
+        assert np.isneginf(best[row]) and np.isneginf(second[row]) and k_best[row] == 0
+
+
+@pytest.mark.parametrize("what", list(POISONED_ROWS))
+def test_non_finite_entry_poisons_its_row_on_and_off_the_line(contract_case, what):
+    """One non-finite map entry anywhere, read by the line or not, turns the
+    row's best score into NaN (a non-finite best is gated out by the caller),
+    in the plain version and in the JAX kernel alike."""
+    row = POISONED_ROWS[what]
+    got, ref = contract_case
+    assert np.isnan(got[0][row]) and np.isnan(got[1][row])
+    assert not np.isfinite(ref[0][row])
+    assert got[2][row] == 0                 # the port: the first step that is inside
+
+
+def test_contract_case_leaves_the_other_rows_alone(contract_case):
+    got, ref = contract_case
+    special = sorted(list(NO_STEP_ROWS.values()) + list(POISONED_ROWS.values()))
+    keep = np.setdiff1d(np.arange(24), special + [1])   # row 1: outside by construction
+    assert np.isfinite(got[0][keep]).all() and np.isfinite(ref[0][keep]).all()
+    np.testing.assert_allclose(got[0][keep], ref[0][keep], atol=2e-4)
+    assert np.isfinite(got[0][15])              # 1e15 off the line: finite, not poison
+
+
+@pytest.mark.parametrize("shape, plan", [
+    ((1024, 40, 40), (2, 128, 14464)),          # the sweep: 1808 floats a seed
+    ((256, 48, 40), (2, 128, 20096)),
+    ((1, 40, 40), (1, 64, 7232)),               # no more seeds than there are
+    ((1024, 41, 40), (2, 128, 15136)),          # rounded up to 16 bytes a seed
+    ((16, 200, 40), (1, 64, 160832)),           # two such seeds do not fit 227 KB
+])
+def test_zmncc_launch_plan(shape, plan):
+    assert epipolar_cuda.zmncc_launch_plan(*shape) == plan
+    assert epipolar_cuda.zmncc_launch_plan(*shape) == plan      # a pure function
+
+
+def test_zmncc_launch_plan_raises_beyond_shared_memory():
+    assert epipolar_cuda.zmncc_launch_plan(4, 236, 40)[2] <= epipolar_cuda.SMEM_MAX
+    with pytest.raises(ValueError):
+        epipolar_cuda.zmncc_launch_plan(4, 300, 40)

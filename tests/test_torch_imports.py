@@ -80,8 +80,9 @@ def test_kernel_sources_are_in_the_package():
             "no float atomics", ""), name
     assert "arch=compute_90a,code=sm_90a" in _cuda_build.NVCC_FLAGS
     # the six kernels take at least nine arguments each (pointers and the
-    # stream declared one by one); the plan, its override and the probe fewer
-    helpers = {"hso_coarse_launch_plan", "hso_coarse_plan_override", "hso_probe_latency"}
+    # stream declared one by one); the plans, K3's override and the probe fewer
+    helpers = {"hso_coarse_launch_plan", "hso_coarse_plan_override", "hso_probe_latency",
+               "hso_zmncc_launch_plan", "hso_align_launch_plan"}
     assert helpers < set(_cuda_build._SIGNATURES)
     assert all(len(sig) >= 9 for name, sig in _cuda_build._SIGNATURES.items()
                if name not in helpers)
