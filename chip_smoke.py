@@ -16,10 +16,13 @@ without one.  Imports nothing of JAX.
 
 With ``--other-csrc DIR`` (another version of ``hso_tpu_torch/csrc`` with the
 same C interface, for instance the parent commit's) the ``kernels`` phase also
-prints how far K6 on the recorded call is from that version's K6.
+prints how far K6 on the recorded call is from that version's K6, and the
+``frame`` phase runs its 24 frames again on that version (K1 as two
+single-image launches a level) and requires every output to hold the same bits.
 
 Phases (one JSON line each): ``device``, ``build`` (with the registers, spills
-and static shared memory of K3, K4, K5 and K6), ``kernels`` (one line per
+and static shared memory of every kernel, and the launch plans of K1/K2, K4 and
+K6 in Python and in C), ``kernels`` (one line per
 kernel and shape; K3 at each of its four levels and in its variant that leaves
 the windows in global memory), ``latency`` (the card's own figures for a block
 barrier, a cluster barrier, the reductions and the scalar steps of K3 and K5,
@@ -231,8 +234,7 @@ def plain_kernels():
     from hso_tpu_torch.track import coarse_tracker, matcher, pose_optimizer
 
     return patched([
-        (coarse_tracker, "extract_windows", window_cuda.extract_windows_plain),
-        (depth_filter, "extract_windows", window_cuda.extract_windows_plain),
+        (coarse_tracker, "extract_windows_multi", window_cuda.extract_windows_multi_plain),
         (epipolar, "pack_level_windows_gather", window_cuda.pack_level_windows_plain),
         (matcher, "align_match", align_cuda.align_match_plain),
         (depth_filter, "align_match", align_cuda.align_match_plain),
@@ -248,13 +250,12 @@ def shape_tallies():
     patch context, {kernel: Tally})."""
     from hso_tpu_torch.track import coarse_tracker, matcher
 
-    k1 = Tally(window_cuda.extract_windows, lambda a, k: a[3])
+    k1 = Tally(window_cuda.extract_windows_multi, lambda a, k: a[1])
     k2 = Tally(window_cuda.pack_level_windows_gather, lambda a, k: a[4])
     k4 = Tally(align_cuda.align_match, lambda a, k: k["win"])
     k3 = Tally(coarse_cuda.coarse_level_ic, lambda a, k: k["h_img"])
-    ctx = patched([(coarse_tracker, "extract_windows", k1),
+    ctx = patched([(coarse_tracker, "extract_windows_multi", k1),
                    (coarse_tracker, "coarse_level_ic", k3),
-                   (depth_filter, "extract_windows", k1),
                    (epipolar, "pack_level_windows_gather", k2),
                    (matcher, "align_match", k4),
                    (depth_filter, "align_match", k4)])
@@ -268,6 +269,7 @@ def capture_kernel_inputs(step, state, img):
     from hso_tpu_torch.track import coarse_tracker, matcher, pose_optimizer
 
     rec = {
+        "windows": Recorder(window_cuda.extract_windows_multi),
         "coarse": Recorder(coarse_cuda.coarse_level_ic),
         "align": Recorder(align_cuda.align_match),
         "pose": Recorder(pose_cuda.pose_lm),
@@ -275,7 +277,8 @@ def capture_kernel_inputs(step, state, img):
         "pack": Recorder(window_cuda.pack_level_windows_gather),
         "zmncc": Recorder(epipolar_cuda.zmncc_line_scores),
     }
-    with patched([(coarse_tracker, "coarse_level_ic", rec["coarse"]),
+    with patched([(coarse_tracker, "extract_windows_multi", rec["windows"]),
+                  (coarse_tracker, "coarse_level_ic", rec["coarse"]),
                   (matcher, "align_match", rec["align"]),
                   (pose_optimizer, "pose_lm", rec["pose"]),
                   (depth_filter, "align_match", rec["seed_align"]),
@@ -306,44 +309,125 @@ def gather_ms(stack, level, au, av, win, device):
     return time_ms(lambda: stack[lv, rows[:, :, None], cols[:, None, :]], device)
 
 
-def check_windows(cur_pyr, device, results):
+def c_window_plan(h: int, w: int, win: int, addr: int) -> tuple:
+    """K1/K2's plan for one source as the library computes it."""
+    out3 = (ctypes.c_int * 3)()
+    rc = _cuda_build.lib().hso_window_launch_plan(h, w, win, addr, ctypes.byref(out3))
+    assert rc == 0, f"the library has no window plan for {h}x{w} win {win}"
+    return bool(out3[0]), out3[1], out3[2]
+
+
+def window_plan_of(img: torch.Tensor, win: int) -> tuple:
+    """The window plan of one source, asserted the same in Python and in C."""
+    plan = window_cuda.window_copy_plan(*img.shape, win, img.data_ptr())
+    assert plan == c_window_plan(*img.shape, win, img.data_ptr()), \
+        f"window plans differ at {tuple(img.shape)} win {win}: {plan}"
+    return plan
+
+
+def hold_windows(got, ref, what) -> float:
+    """Kernel windows against the plain version's: the same bits (tolerance
+    0.0: a window is a copy).  Returns the largest difference (0.0)."""
+    for a, b in zip(got, ref):
+        assert a.shape == b.shape and same_bits(a, b), f"{what}: not the plain version's bits"
+    return max((float((a - b).abs().max()) for a, b in zip(got, ref) if a.numel()), default=0.0)
+
+
+def random_anchors(n, h, w, win, g, device):
+    """Anchors from ``win + 3`` px beyond the top-left corner to 3 px beyond the
+    bottom-right one: windows inside, partly outside and wholly outside."""
+    au = torch.randint(-win - 3, w + 4, (n,), generator=g)
+    av = torch.randint(-win - 3, h + 4, (n,), generator=g)
+    return au.to(torch.int32).to(device), av.to(torch.int32).to(device)
+
+
+def unaligned_copy(img: torch.Tensor) -> torch.Tensor:
+    """The same image at a base address 4 bytes past a 16-byte boundary."""
+    flat = torch.zeros(img.numel() + 1, device=img.device)
+    flat[1:] = img.reshape(-1)
+    return flat[1:].view(img.shape)
+
+
+def contiguous_jobs(jobs) -> list:
+    """K1 jobs as the dispatcher hands them to the kernel: every tensor contiguous."""
+    return [tuple(t.contiguous() for t in job) for job in jobs]
+
+
+def check_windows(calls_k1, calls_k2, cur_pyr, device, results):
+    """K1 and K2 against their plain versions at tolerance 0.0 on both bodies:
+    the tracker's recorded two-job launches (aligned body at every level), the
+    matcher's recorded K2 calls, anchors partly and wholly outside the image
+    (negative ones too), a 30x47 image with win 22 and 24 and an image at an
+    unaligned base (general body), a multi-job launch mixing image sizes and
+    bodies, K2 rows at level -1 and n_levels; every launch repeated bitwise."""
     g = torch.Generator(device="cpu").manual_seed(0)
-    win, n = 24, 336
-
-    # K1 at every coarse level: corner anchors + random interior anchors
     worst = 0.0
-    for level in (4, 3, 2, 1):
-        img = cur_pyr[level]
-        h, w = img.shape
-        au = torch.cat([torch.tensor([0, w - win, 0, w - win]),
-                        torch.randint(0, w - win + 1, (n - 4,), generator=g)]).to(torch.int32)
-        av = torch.cat([torch.tensor([0, 0, h - win, h - win]),
-                        torch.randint(0, h - win + 1, (n - 4,), generator=g)]).to(torch.int32)
-        au, av = au.to(device), av.to(device)
-        got = window_cuda.extract_windows_cuda(img, au, av, win)
-        ref = window_cuda.extract_windows_plain(img, au, av, win)
-        worst = max(worst, float((got - ref).abs().max()))
-    # out-of-range anchors read 0 in both
-    au_o = torch.tensor([-5, w - 10], dtype=torch.int32, device=device)
-    av_o = torch.tensor([-3, h - 7], dtype=torch.int32, device=device)
-    worst = max(worst, float((window_cuda.extract_windows_cuda(img, au_o, av_o, win)
-                              - window_cuda.extract_windows_plain(img, au_o, av_o, win))
-                             .abs().max()))
-    assert worst <= 1e-6, f"extract_windows disagrees with its plain version: {worst}"
-    nbytes = 2 * n * win * win * 4 + 2 * n * 4
-    b_ms, b_by = bound(nbytes, 0)
-    results["extract_windows"] = dict(
-        max_abs_err=worst, tol=1e-6, shape=f"N={n} win={win} image={h}x{w} (level 1)",
-        ms=time_ms(lambda: window_cuda.extract_windows_cuda(img, au, av, win), device),
-        plain_ms=time_ms(lambda: window_cuda.extract_windows_plain(img, au, av, win), device,
-                         inner=2),
-        library_ms=gather_ms(img[None], torch.zeros_like(au), au, av, win, device),
-        bound_ms=b_ms, bound_by=b_by)
+    plans = {}
+    # the recorded arguments are the dispatcher's, before its .contiguous()
+    calls_k1 = [((contiguous_jobs(jobs), win), kw) for (jobs, win), kw in calls_k1]
 
-    # K2: per-row levels, centres partly outside the image
+    def k1(jobs, win, what, body=None):
+        nonlocal worst
+        for img, _, _ in jobs:
+            plan = window_plan_of(img, win)
+            base = "" if img.data_ptr() % 16 == 0 else ", base 4 bytes past 16"
+            plans[f"{img.shape[0]}x{img.shape[1]} win {win}{base}"] = plan
+            if body is not None:
+                assert plan[0] == (body == "aligned"), f"{what}: expected the {body} body"
+        got = window_cuda.extract_windows_multi_cuda(jobs, win)
+        worst = max(worst, hold_windows(got, window_cuda.extract_windows_multi_plain(jobs, win),
+                                        what))
+        hold_windows(window_cuda.extract_windows_multi_cuda(jobs, win), got, f"{what}, again")
+        if len(jobs) > 1:       # the single-image entry gives the same bits
+            hold_windows([window_cuda.extract_windows_cuda(*j, win) for j in jobs], got,
+                         f"{what}, one job a launch")
+
+    def k2(pyr, level, au, av, win, n_levels, what, body=None):
+        nonlocal worst
+        for img in pyr[:n_levels]:
+            plan = window_plan_of(img, win)
+            if body is not None:
+                assert plan[0] == (body == "aligned"), f"{what}: expected the {body} body"
+        got = window_cuda.pack_level_windows_cuda(pyr, level, au, av, win, n_levels)
+        ref = window_cuda.pack_level_windows_plain(pyr, level, au, av, win, n_levels)
+        worst = max(worst, hold_windows([got], [ref], what))
+        hold_windows([window_cuda.pack_level_windows_cuda(pyr, level, au, av, win, n_levels)],
+                     [got], f"{what}, again")
+        return got
+
+    # K1 as the tracker calls it: ref and cur windows of a level in one launch
+    assert len(calls_k1) == 4, f"expected 4 two-job window launches a frame, got {len(calls_k1)}"
+    for (jobs, win), _ in calls_k1:
+        assert win == 24 and len(jobs) == 2
+        k1(jobs, win, f"K1 at {tuple(jobs[0][0].shape)}", body="aligned")
+    # anchors partly and wholly outside, both bodies, and a launch that mixes
+    # image sizes and bodies
+    img1 = calls_k1[-1][0][0][1][0]
+    odd = torch.rand((30, 47), generator=g).to(device)
+    for win in (24, 22, 40, 44):
+        k1([(img1, *random_anchors(336, *img1.shape, win, g, device))], win,
+           f"K1 anchors outside, win {win}", body="aligned" if win % 4 == 0 else "general")
+        k1([(unaligned_copy(img1), *random_anchors(200, *img1.shape, win, g, device))], win,
+           f"K1 unaligned base, win {win}", body="general")
+    for win in (22, 24):
+        k1([(odd, *random_anchors(300, 30, 47, win, g, device))], win,
+           f"K1 30x47 win {win}", body="general")
+    mixed = [cur_pyr[4], odd, cur_pyr[2], unaligned_copy(cur_pyr[3]), cur_pyr[0]]
+    k1([(im, *random_anchors(int(torch.randint(1, 90, (1,), generator=g)), *im.shape, 24, g,
+                             device)) for im in mixed], 24, "K1, five jobs of different sizes")
+
+    # K2: the matcher's recorded calls, rows at level -1 and n_levels, centres
+    # partly outside, and a pyramid the general body takes
+    k2_24 = [c for c in calls_k2 if c[0][4] == 24]
+    assert len(k2_24) == 2, f"expected 2 win-24 window packs a frame, got {len(k2_24)}"
+    for (pyr, level, au, av, win, n_levels), _ in k2_24:
+        pyr = [p.contiguous() for p in pyr[:n_levels]]
+        k2(pyr, level, au, av, win, n_levels, "K2, recorded matcher call", body="aligned")
+        bad = level.clone()
+        bad[0], bad[1], bad[2] = -1, n_levels, 99
+        got = k2(pyr, bad, au, av, win, n_levels, "K2, levels out of range")
+        assert not bool(got[:3].any()), "K2: a row at a level out of range is not zero"
     n_levels = 3
-    worst = 0.0
-    timing = None
     for s in (336, 168):
         level = torch.randint(0, n_levels, (s,), generator=g).to(torch.int32)
         dims = torch.tensor([list(cur_pyr[l].shape) for l in range(n_levels)])
@@ -353,27 +437,44 @@ def check_windows(cur_pyr, device, results):
         au = torch.zeros(s, dtype=torch.int32)
         av = torch.zeros(s, dtype=torch.int32)
         for l in range(n_levels):
-            a_u, a_v = clip_anchor(cu, cv, win, 0, *cur_pyr[l].shape)
+            a_u, a_v = clip_anchor(cu, cv, 24, 0, *cur_pyr[l].shape)
             au = torch.where(level == l, a_u, au)
             av = torch.where(level == l, a_v, av)
-        level, au, av = level.to(device), au.to(device), av.to(device)
-        got = window_cuda.pack_level_windows_cuda(cur_pyr, level, au, av, win, n_levels)
-        ref = window_cuda.pack_level_windows_plain(cur_pyr, level, au, av, win, n_levels)
-        worst = max(worst, float((got - ref).abs().max()))
-        if s == 336:
-            timing = (level, au, av)
-    assert worst <= 1e-6, f"pack_level_windows disagrees with its plain version: {worst}"
-    level, au, av = timing
-    s = 336
-    nbytes = 2 * s * win * win * 4 + 3 * s * 4
-    b_ms, b_by = bound(nbytes, 0)
+        k2(cur_pyr, level.to(device), au.to(device), av.to(device), 24, n_levels,
+           f"K2, centres partly outside, S={s}")
+    odd_pyr = [torch.rand((60 >> l, 94 >> l), generator=g).to(device) for l in range(3)]
+    for win in (22, 24):
+        level = torch.randint(-1, 4, (257,), generator=g).to(torch.int32).to(device)
+        au, av = random_anchors(257, 60, 94, win, g, device)
+        k2(odd_pyr, level, au, av, win, 3, f"K2 general body, win {win}", body="general")
+
+    # timing: K1 at level 1 as the tracker launches it, K2 on the matcher's first call
+    (jobs, win), _ = calls_k1[-1]
+    n = jobs[0][1].shape[0]
+    h, w = jobs[0][0].shape
+    stack = torch.stack([jobs[0][0], jobs[1][0]])
+    lv = torch.cat([torch.zeros(n, dtype=torch.int32), torch.ones(n, dtype=torch.int32)])
+    b_ms, b_by = bound(2 * (2 * n * win * win * 4 + 2 * n * 4), 0)
+    results["extract_windows"] = dict(
+        max_abs_err=worst, tol=0.0,
+        shape=f"2 jobs x N={n} win={win} image={h}x{w} (level 1, one launch; also levels 4-2)",
+        ms=time_ms(lambda: window_cuda.extract_windows_multi_cuda(jobs, win), device),
+        plain_ms=time_ms(lambda: window_cuda.extract_windows_multi_plain(jobs, win), device,
+                         inner=2),
+        library_ms=gather_ms(stack, lv.to(device), torch.cat([jobs[0][1], jobs[1][1]]),
+                             torch.cat([jobs[0][2], jobs[1][2]]), win, device),
+        bound_ms=b_ms, bound_by=b_by, plans=plans)
+    (pyr, level, au, av, win, n_levels), _ = k2_24[0]
+    pyr = [p.contiguous() for p in pyr[:n_levels]]
+    s = level.shape[0]
+    b_ms, b_by = bound(2 * s * win * win * 4 + 3 * s * 4, 0)
     results["pack_level_windows"] = dict(
-        max_abs_err=worst, tol=1e-6, shape=f"S={s} (also 168) win={win} levels={n_levels}",
+        max_abs_err=worst, tol=0.0, shape=f"S={s} win={win} levels={n_levels} (matcher)",
         ms=time_ms(lambda: window_cuda.pack_level_windows_cuda(
-            cur_pyr, level, au, av, win, n_levels), device),
+            pyr, level, au, av, win, n_levels), device),
         plain_ms=time_ms(lambda: window_cuda.pack_level_windows_plain(
-            cur_pyr, level, au, av, win, n_levels), device, inner=2),
-        library_ms=gather_ms(level_stack(cur_pyr, n_levels, device), level, au, av, win, device),
+            pyr, level, au, av, win, n_levels), device, inner=2),
+        library_ms=gather_ms(level_stack(pyr, n_levels, device), level, au, av, win, device),
         bound_ms=b_ms, bound_by=b_by)
 
 
@@ -421,9 +522,18 @@ def c_plan3(fn_name: str, *shape) -> tuple:
 
 
 def check_launch_plans() -> dict:
-    """The launch plans of K6 and K4 are the same pure function in Python and
-    in C, at the shapes of the main path and where shared memory cuts them."""
+    """The launch plans of K1/K2, K6 and K4 are the same pure function in
+    Python and in C, at the shapes of the main path and where shared memory
+    (K4, K6) or alignment (K1/K2) cuts them."""
     plans = {}
+    for shape in ((480, 640, 44, 0), (240, 320, 24, 256), (30, 40, 24, 512), (120, 160, 40, 0),
+                  (30, 47, 22, 0), (30, 47, 24, 0), (240, 320, 24, 4), (240, 320, 124, 0),
+                  (240, 320, 128, 0), (60, 80, 48, 16), (60, 80, 2, 0)):
+        plan = window_cuda.window_copy_plan(*shape)
+        assert plan == c_window_plan(*shape), f"K1/K2 window plans differ at {shape}: {plan}"
+        plans[f"window{shape}"] = plan
+    out3 = (ctypes.c_int * 3)()
+    assert _cuda_build.lib().hso_window_launch_plan(0, 40, 24, 0, ctypes.byref(out3)) == 1
     for shape in ((1024, 40, 40), (256, 48, 40), (48, 48, 40), (3, 40, 40), (16, 160, 64),
                   (16, 236, 40)):
         plan = epipolar_cuda.zmncc_launch_plan(*shape)
@@ -688,51 +798,31 @@ def check_pose(calls, device, results):
         library_ms=None, bound_ms=b_ms, bound_by=b_by)
 
 
-def check_pack_sweep(calls, device, results):
-    """K2 at the sweep's shape (S seed slots, win 40) on the recorded call."""
-    sweep = [c for c in calls if c[0][4] == epipolar.EW]
-    assert len(sweep) == 1, f"expected 1 win-{epipolar.EW} window pack, got {len(sweep)}"
-    (pyr, level, au, av, win, n_levels), _ = sweep[0]
+def check_pack_one(calls, win, key, device, results):
+    """K2 on its one recorded call at window edge ``win`` (the sweep's S seed
+    slots at win 40, or ``init_seeds``' detections at win 44): the plain
+    version's bits, a second launch bitwise equal."""
+    found = [c for c in calls if c[0][4] == win]
+    assert len(found) == 1, f"expected 1 win-{win} window pack, got {len(found)}"
+    (pyr, level, au, av, win, n_levels), _ = found[0]
     pyr = [p.contiguous() for p in pyr[:n_levels]]
+    for img in pyr:
+        assert window_plan_of(img, win)[0], f"K2 win {win}: the aligned body should take it"
     got = window_cuda.pack_level_windows_cuda(pyr, level, au, av, win, n_levels)
-    ref = window_cuda.pack_level_windows_plain(pyr, level, au, av, win, n_levels)
-    worst = float((got - ref).abs().max())
-    assert worst <= 1e-6, f"pack_level_windows (win {win}) disagrees: {worst}"
+    worst = hold_windows([got], [window_cuda.pack_level_windows_plain(
+        pyr, level, au, av, win, n_levels)], f"pack_level_windows (win {win})")
+    hold_windows([window_cuda.pack_level_windows_cuda(pyr, level, au, av, win, n_levels)],
+                 [got], f"pack_level_windows (win {win}), again")
     s = level.shape[0]
     b_ms, b_by = bound(2 * s * win * win * 4 + 3 * s * 4, 0)
-    results["pack_level_windows@sweep"] = dict(
-        max_abs_err=worst, tol=1e-6,
+    results[key] = dict(
+        max_abs_err=worst, tol=0.0,
         shape=f"S={s} win={win} levels={n_levels}",
         ms=time_ms(lambda: window_cuda.pack_level_windows_cuda(
             pyr, level, au, av, win, n_levels), device),
         plain_ms=time_ms(lambda: window_cuda.pack_level_windows_plain(
             pyr, level, au, av, win, n_levels), device, inner=2),
         library_ms=gather_ms(level_stack(pyr, n_levels, device), level, au, av, win, device),
-        bound_ms=b_ms, bound_by=b_by)
-
-
-def check_extract_seed(calls, device, results):
-    """K1 at the seed table's shape (win 44) on the calls recorded from
-    ``init_seeds``: one per pyramid level."""
-    assert len(calls) == 3, f"expected 3 host-window extractions, got {len(calls)}"
-    worst = 0.0
-    for (img, au, av, win), _ in calls:
-        assert win == SEED_WIN
-        worst = max(worst, float((window_cuda.extract_windows_cuda(img, au, av, win)
-                                  - window_cuda.extract_windows_plain(img, au, av, win))
-                                 .abs().max()))
-    assert worst <= 1e-6, f"extract_windows (win {SEED_WIN}) disagrees: {worst}"
-    (img, au, av, win), _ = calls[0]
-    n = au.shape[0]
-    h, w = img.shape
-    b_ms, b_by = bound(2 * n * win * win * 4 + 2 * n * 4, 0)
-    results["extract_windows@seed"] = dict(
-        max_abs_err=worst, tol=1e-6,
-        shape=f"N={n} win={win} image={h}x{w} (level 0; also levels 1, 2)",
-        ms=time_ms(lambda: window_cuda.extract_windows_cuda(img, au, av, win), device),
-        plain_ms=time_ms(lambda: window_cuda.extract_windows_plain(img, au, av, win), device,
-                         inner=2),
-        library_ms=gather_ms(img[None], torch.zeros_like(au), au, av, win, device),
         bound_ms=b_ms, bound_by=b_by)
 
 
@@ -1025,6 +1115,32 @@ def detections_from_keyframe(z, kf: int) -> dict:
                 grad=z[pre + "grad"], valid=z[pre + "valid"], f=z[pre + "f"])
 
 
+def keyframe_detections(book) -> tuple:
+    """The last keyframe of the checkpoint: its observation table as a
+    detection set, its pyramid (numpy) and its slot in the seed ring."""
+    z = np.load(BOOT_NPZ, allow_pickle=False)
+    last_kf = int(z["kf_count"]) - 1
+    det_np = detections_from_keyframe(z, last_kf)
+    kf_pyr_np = [z[f"lastkf_pyr_{l}"] for l in range(3)]
+    host_slot = int(np.nonzero(book["seed_ring"] == last_kf)[0][0])
+    return det_np, kf_pyr_np, host_slot
+
+
+def record_init_seeds(state0, book, out0, device) -> list:
+    """The window gathers ``init_seeds`` makes when it fills the seed table
+    from the last keyframe's detections (recorded calls of K2's dispatcher)."""
+    det_np, kf_pyr_np, host_slot = keyframe_detections(book)
+    rec = Recorder(window_cuda.pack_level_windows_gather)
+    with patched([(epipolar, "pack_level_windows_gather", rec)]):
+        depth_filter.init_seeds(
+            state0["seeds"], {k: torch.as_tensor(det_np[k], device=device)
+                              for k in ("px", "level", "species", "grad", "valid")},
+            tuple(torch.as_tensor(p, device=device) for p in kf_pyr_np),
+            torch.as_tensor(det_np["f"], device=device), host_slot, book["batch_counter"] + 1,
+            float(out0["depth_mean"]), float(out0["depth_min"]), 200.0)
+    return rec.calls
+
+
 def seed_life(seeds_np, det_np, pyr_np, host_slot, batch_id, depth_mean, depth_min,
               ring_T_np, ring_exp_np, sweeps, px_error_angle, cam, device):
     """``init_seeds`` into the free slots, one sweep per (image, pose,
@@ -1063,15 +1179,18 @@ def track_ate(recs, gt_poses) -> float:
 
 
 def kernel_resources() -> dict:
-    """Registers, stack, spills and static shared memory of K3 (both
-    instances), K4, K5 and K6, as ``ptxas -v`` printed them in the build."""
-    names = {"coarse_level_ic_kernelILb1": "coarse_level_ic_kernel<windows resident>",
+    """Registers, stack, spills and static shared memory of K1 and K2 (each
+    window-edge instance), K3 (both instances), K4, K5 and K6, as ``ptxas -v``
+    printed them in the build."""
+    names = {f"{k}_windows_kernelILi{w}E": f"{k}_windows_kernel<{w or 'any'}>"
+             for k in ("extract", "pack_level") for w in (24, 40, 44, 0)}
+    names.update({"coarse_level_ic_kernelILb1": "coarse_level_ic_kernel<windows resident>",
              "coarse_level_ic_kernelILb0": "coarse_level_ic_kernel<windows in global memory>",
              "pose_lm_kernel": "pose_lm_kernel",
              "align_match_kernel": "align_match_kernel",
-             "zmncc_line_kernel": "zmncc_line_kernel"}
+             "zmncc_line_kernel": "zmncc_line_kernel"})
     found = {}
-    for src in ("coarse.cu", "pose.cu", "align.cu", "epipolar.cu"):
+    for src in ("window.cu", "coarse.cu", "pose.cu", "align.cu", "epipolar.cu"):
         for entry, res in _cuda_build.kernel_resources(_cuda_build.BUILD_LOG[src]).items():
             for part, name in names.items():
                 if part in entry:
@@ -1119,33 +1238,22 @@ def main() -> int:
     gt = poses[frame_count:frame_count + N_FRAMES]
     scene = bench_scene(cam)
     frames = [scene.render(T) for T in gt]
-    z = np.load(BOOT_NPZ, allow_pickle=False)
-    last_kf = int(z["kf_count"]) - 1
-    det_np = detections_from_keyframe(z, last_kf)
-    kf_pyr_np = [z[f"lastkf_pyr_{l}"] for l in range(3)]
-    host_slot = int(np.nonzero(book["seed_ring"] == last_kf)[0][0])
+    det_np, kf_pyr_np, host_slot = keyframe_detections(book)
     n_slots = int(state0["seeds"]["valid"].shape[0])
 
     # ---- kernels: each against its plain version at the main path's shapes
     results = {}
     rec, out0 = capture_kernel_inputs(frame_step, state0, frames[0])
     assert not out0["used_fc"], "frame 0 took the FC branch: no K3 inputs to check"
-    check_windows(out0["data"]["pyr"], device, results)
+    check_windows(rec["windows"], rec["pack"], out0["data"]["pyr"], device, results)
     check_coarse(rec["coarse"], device, results)
     check_align(rec["align"], device, results)
     check_pose(rec["pose"], device, results)
     check_zmncc(rec["zmncc"], out0["data"]["pyr"], device, results, other)
-    check_pack_sweep(rec["pack"], device, results)
+    check_pack_one(rec["pack"], epipolar.EW, "pack_level_windows@sweep", device, results)
     check_align(rec["seed_align"], device, results, key="align_match@sweep", n_calls=1)
-    rec1 = Recorder(window_cuda.extract_windows)
-    with patched([(depth_filter, "extract_windows", rec1)]):
-        depth_filter.init_seeds(
-            state0["seeds"], {k: torch.as_tensor(det_np[k], device=device)
-                              for k in ("px", "level", "species", "grad", "valid")},
-            tuple(torch.as_tensor(p, device=device) for p in kf_pyr_np),
-            torch.as_tensor(det_np["f"], device=device), host_slot, book["batch_counter"] + 1,
-            float(out0["depth_mean"]), float(out0["depth_min"]), 200.0)
-    check_extract_seed(rec1.calls, device, results)
+    seed_calls = record_init_seeds(state0, book, out0, device)
+    check_pack_one(seed_calls, SEED_WIN, "pack_level_windows@seed", device, results)
     torch.cuda.synchronize(device)
     latency = latency_floor(results, device)
     for name, r in results.items():
@@ -1195,6 +1303,8 @@ def main() -> int:
         assert sum(tally.counts.values()) == launches_f[name], \
             f"{name}: call sites {tally.counts} but {launches_f[name]} launches"
     assert launches_f["zmncc_line_scores"] == N_FRAMES
+    assert tallies["extract_windows"].counts == {24: 4 * N_FRAMES}
+    assert launches_f["extract_windows"] == 4 * N_FRAMES
     assert tallies["pack_level_windows"].counts == {24: 2 * N_FRAMES, epipolar.EW: N_FRAMES}
     assert tallies["align_match"].counts == {24: 2 * N_FRAMES, epipolar.EW: N_FRAMES}
     assert launches_f["pack_level_windows"] == launches_f["align_match"] == 3 * N_FRAMES
@@ -1214,9 +1324,24 @@ def main() -> int:
     assert recs_f[0]["kf_pack"].shape == (grid[1] * grid[2] * 11 + 2 * p_rows + 3 * n_slots,)
 
     # second run: bitwise equal
+    frame_keys = ("T_new", "packed", "kf_pack", "acc", "px", "mu", "sigma2", "obs_count",
+                  "seed_matched")
     recs_f2, _, _ = run_track(frame_step, state0, frames, device, whole=True)
-    assert_same_run(recs_f, recs_f2, ("T_new", "packed", "kf_pack", "mu", "sigma2", "obs_count"),
-                    "frame, second run")
+    assert_same_run(recs_f, recs_f2, frame_keys, "frame, second run")
+    vs_other = None
+    if other is not None:
+        # the same frames on the other version of the kernels, K1 as one launch
+        # per image (the other version may have no multi-job entry)
+        from hso_tpu_torch.track import coarse_tracker
+
+        def one_launch_a_job(jobs, win):
+            return [window_cuda.extract_windows(img, au, av, win) for img, au, av in jobs]
+
+        with _cuda_build.using_lib(other), \
+                patched([(coarse_tracker, "extract_windows_multi", one_launch_a_job)]):
+            recs_o, _, _ = run_track(frame_step, state0, frames, device, whole=True)
+        assert_same_run(recs_f, recs_o, frame_keys, "frame, this version against the other")
+        vs_other = "bitwise equal"
 
     # frame 1 with every kernel routed to its plain version, on the card
     with plain_kernels():
@@ -1246,7 +1371,7 @@ def main() -> int:
          seeds_updated_total=seeds_updated,
          seeds_updated_per_frame=[r["n_seeds_updated"] for r in recs_f],
          frame1_vs_plain=d_plain_f, frame1_matched_flips=n_flip, frame1_mu_vs_plain=d_mu,
-         second_run_bitwise_equal=True)
+         second_run_bitwise_equal=True, vs_other_version=vs_other)
 
     # ---- fc_frame: one frame forced through the forward-compositional branch
     # of the coarse tracker (the step picks it when the gradient mean rose by
@@ -1290,7 +1415,8 @@ def main() -> int:
         zero_counters()
         life_k = seed_life(*life_args, device)
         launches_s = read_counters()
-    assert tallies_s["extract_windows"].counts == {SEED_WIN: 3}
+    assert tallies_s["pack_level_windows"].counts == {SEED_WIN: 1, epipolar.EW: len(sweeps)}
+    assert launches_s["extract_windows"] == 0 and launches_s["pack_level_windows"] == 1 + len(sweeps)
     assert launches_s["zmncc_line_scores"] == len(sweeps)
     life_c = seed_life(*life_args, torch.device("cpu"))
     assert read_counters() == launches_s, "the CPU run launched a kernel"

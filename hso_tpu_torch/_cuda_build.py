@@ -138,6 +138,13 @@ class LevelTable(ctypes.Structure):
     _fields_ = [("img", _P * 8), ("h", _I * 8), ("w", _I * 8)]
 
 
+class WindowJob(ctypes.Structure):
+    """One job of ``hso_extract_windows_jobs``: the windows of one image
+    (``csrc/window.cu``)."""
+    _fields_ = [("img", _P), ("h", _I), ("w", _I), ("au", _P), ("av", _P), ("n", _I),
+                ("out", _P)]
+
+
 class PatternTable(ctypes.Structure):
     """Pattern offsets of one coarse level (``csrc/coarse.cu``)."""
     MAX_POINTS = 32
@@ -149,6 +156,7 @@ class PatternTable(ctypes.Structure):
 _SIGNATURES = {
     "hso_extract_windows": [_P, _I, _I, _P, _P, _I, _I, _P, _P],
     "hso_pack_level_windows": [ctypes.POINTER(LevelTable), _I, _P, _P, _P, _I, _I, _P, _P],
+    "hso_extract_windows_jobs": [ctypes.POINTER(WindowJob), _I, _I, _P],
     "hso_coarse_level_ic": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                             _F, _F, _F, _F, _I, _I, _I, _I,
                             ctypes.POINTER(PatternTable), _I, _I, _I, _I, _I, _P, _P],
@@ -158,8 +166,10 @@ _SIGNATURES = {
     "hso_coarse_launch_plan": [_I, _I, ctypes.POINTER(_I * 4)],
     "hso_zmncc_launch_plan": [_I, _I, _I, ctypes.POINTER(_I * 3)],
     "hso_align_launch_plan": [_I, _I, ctypes.POINTER(_I * 3)],
+    "hso_window_launch_plan": [_I, _I, _I, ctypes.c_ulonglong, ctypes.POINTER(_I * 3)],
     "hso_coarse_plan_override": [_I, _I],
     "hso_probe_latency": [_I, _I, _I, _I, _P, _P],
+    "hso_probe_tma": [_I, _P, _I, _I, _P, _P],
 }
 
 

@@ -6,7 +6,13 @@
 // that a latency floor = evaluations x (reduction + barrier + scalar step)
 // can be written beside each kernel's time.  Not on any path of the package:
 // only measurement scripts launch them.
+//
+// hso_probe_tma asks whether the card's Tensor Memory Accelerator copies a
+// tile (tools/probe_tma.py; the window kernels K1/K2 would use it).  A fault
+// there poisons the CUDA context, so only a child process calls it.
 #include <cooperative_groups.h>
+#include <cuda.h>
+#include <stdint.h>
 
 #include "common.cuh"
 
@@ -133,7 +139,86 @@ cudaError_t launch(int threads, int cluster, int iters, float* out, cudaStream_t
     return cudaLaunchKernelEx(&cfg, probe_kernel<KIND>, iters, out);
 }
 
+// One thread: kind 0 copies the 24 x 24 box at (3, 2) of the image through a
+// tensor map (cp.async.bulk.tensor.2d), kind 1 the image's first 2304 bytes
+// by a plain bulk copy (cp.async.bulk); both land in shared memory, complete
+// on an mbarrier and are written to out by the same thread.
+__global__ void tma_probe_kernel(const __grid_constant__ CUtensorMap map, const float* img,
+                                 int kind, float* out) {
+    __shared__ __align__(128) float box[24 * 24];
+    __shared__ __align__(8) uint64_t bar_mem;
+    if (threadIdx.x != 0) return;
+    const uint32_t bar = static_cast<uint32_t>(__cvta_generic_to_shared(&bar_mem));
+    const uint32_t dst = static_cast<uint32_t>(__cvta_generic_to_shared(box));
+    const uint32_t bytes = sizeof(box);
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(bar) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
+                 : "memory");
+    if (kind == 0) {
+        asm volatile(
+            "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+            " [%0], [%1, {%2, %3}], [%4];" ::"r"(dst),
+            "l"(reinterpret_cast<uint64_t>(&map)), "r"(3), "r"(2), "r"(bar)
+            : "memory");
+    } else {
+        asm volatile(
+            "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+            ::"r"(dst), "l"(img), "r"(bytes), "r"(bar)
+            : "memory");
+    }
+    uint32_t done = 0;
+    do {
+        asm volatile(
+            "{\n\t.reg .pred p;\n\t"
+            "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+            "selp.u32 %0, 1, 0, p;\n\t}"
+            : "=r"(done)
+            : "r"(bar), "r"(0u)
+            : "memory");
+    } while (!done);
+    for (int i = 0; i < 24 * 24; ++i) out[i] = box[i];
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
 }  // namespace
+
+// Launch the TMA probe (see tma_probe_kernel) on an (h, w) float image, h >= 26
+// and w >= 27, 16-byte aligned with w % 4 == 0; out holds 576 floats.  Returns
+// the launch's error, 900 when the driver has no cuTensorMapEncodeTiled, or
+// 1000 + the CUresult of a tensor map that failed to encode.
+extern "C" int hso_probe_tma(int kind, const float* img, int h, int w, float* out,
+                             cudaStream_t stream) {
+    CUtensorMap map{};
+    if (kind == 0) {
+        void* f = nullptr;
+        cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+        const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000,
+                                                               cudaEnableDefault, &q);
+#else
+        const cudaError_t e =
+            cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &q);
+#endif
+        if (e != cudaSuccess || q != cudaDriverEntryPointSuccess) return 900;
+        const cuuint64_t dim[2] = {(cuuint64_t)w, (cuuint64_t)h};
+        const cuuint64_t stride[1] = {(cuuint64_t)w * sizeof(float)};
+        const cuuint32_t box[2] = {24, 24};
+        const cuuint32_t elem[2] = {1, 1};
+        const CUresult r = reinterpret_cast<EncodeTiled>(f)(
+            &map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(img), dim, stride, box,
+            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+            CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+        if (r != CUDA_SUCCESS) return 1000 + (int)r;
+    }
+    tma_probe_kernel<<<1, 32, 0, stream>>>(map, img, kind, out);
+    return (int)cudaGetLastError();
+}
 
 // Run `iters` rounds of one probe (see Kind) in one cluster of `cluster`
 // blocks of `threads` threads; out[0] receives a value that depends on every

@@ -37,8 +37,8 @@ from hso_tpu_torch.ops.align_cuda import (ROW_CONV, ROW_GX, ROW_GY, ROW_NCC, ROW
                                           align_match)
 from hso_tpu_torch.ops.epipolar import (EW, MAX_EPL, epipolar_zmncc_search, pack_level_windows,
                                         triangulate_depth)
-from hso_tpu_torch.ops.gatherless import clip_anchor, extract_windows
-from hso_tpu_torch.ops.warp import best_search_level, warp_from_stored_windows, warp_matrices
+from hso_tpu_torch.ops.warp import (best_search_level, memoize_level_windows,
+                                    warp_from_stored_windows, warp_matrices)
 
 HOST_WIN = 44          #: stored host-image window edge.  Sized so the 10×10
 #: bordered ref patch stays inside even when the epipolar search runs two
@@ -98,17 +98,8 @@ def init_seeds(seeds, det, kf_pyr, f_det, host_slot, batch_id, depth_mean, depth
     f32, i32 = torch.float32, torch.int32
 
     # stored host windows at each detection's own level
-    win = torch.zeros((n_det, HOST_WIN, HOST_WIN), dtype=f32, device=dev)
-    anch = torch.zeros((n_det, 2), dtype=i32, device=dev)
     px = det["px"].to(f32)
-    for lvl in range(n_levels):
-        img = kf_pyr[lvl]
-        scale = 1.0 / (1 << lvl)
-        au, av = clip_anchor(px[:, 0] * scale, px[:, 1] * scale, HOST_WIN, 0, *img.shape)
-        w_l = extract_windows(img, au, av, HOST_WIN)
-        sel = det["level"] == lvl
-        win = torch.where(sel[:, None, None], w_l, win)
-        anch = torch.where(sel[:, None], torch.stack([au, av], dim=-1), anch)
+    win, anch = memoize_level_windows(kf_pyr, px, det["level"], win=HOST_WIN, n_levels=n_levels)
 
     # slot allocation: free slots first, in slot order (stable sort of the
     # valid flag: False < True)

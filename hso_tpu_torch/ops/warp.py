@@ -14,8 +14,8 @@ import torch
 import torch.nn.functional as F
 
 from hso_tpu_torch.math.linalg_small import det2x2
-from hso_tpu_torch.ops.gatherless import (bilinear_scatter_in_windows, clip_anchor,
-                                          extract_windows)
+from hso_tpu_torch.ops.epipolar import pack_level_windows
+from hso_tpu_torch.ops.gatherless import bilinear_scatter_in_windows
 
 BORD = 10          # bordered patch edge (patch 8 + 1px border)
 HALF_BORD = 5
@@ -111,20 +111,15 @@ def memoize_level_windows(pyr, px, level, win: int = 24, n_levels: int = 3):
     level (one call at point/seed creation or patch-source refresh, then
     matching never reads this pyramid again).  ``px`` is in level-0
     coordinates.  Returns (windows (N, win, win), anchors (N, 2) int32 in
-    level coordinates)."""
-    n = px.shape[0]
-    dev = px.device
-    out_w = torch.zeros((n, win, win), dtype=torch.float32, device=dev)
-    out_a = torch.zeros((n, 2), dtype=torch.int32, device=dev)
-    for lvl in range(n_levels):
-        img = pyr[lvl]
-        scale = 1.0 / (1 << lvl)
-        au, av = clip_anchor(px[:, 0] * scale, px[:, 1] * scale, win, 0, *img.shape)
-        w_l = extract_windows(img, au, av, win)
-        sel = level == lvl
-        out_w = torch.where(sel[:, None, None], w_l, out_w)
-        out_a = torch.where(sel[:, None], torch.stack([au, av], dim=-1), out_a)
-    return out_w, out_a
+    level coordinates); a row whose level lies outside [0, n_levels) gets a
+    zero window at anchor (0, 0).  One per-row-level gather (kernel K2 on the
+    card): ``px · 2^-level`` is exact, so the anchors are those of one
+    extraction per level."""
+    level = level.to(torch.int32)
+    scale = 1.0 / _pow2(level.clamp(0, n_levels - 1))
+    windows, (au, av), _ = pack_level_windows(pyr, level, px[:, 0] * scale, px[:, 1] * scale,
+                                              win, n_levels)
+    return windows, torch.stack([au, av], dim=-1)
 
 
 def memoize_level_windows_packed(pyr, px, level, win: int = 24, n_levels: int = 3):

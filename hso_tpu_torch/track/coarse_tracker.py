@@ -5,7 +5,8 @@ MAD robust thresholds, DSO saturation energy, and forward- or
 inverse-compositional updates chosen per frame.
 
 Per pyramid level one window extraction pulls a 24×24 window per feature
-around its predicted projection (kernel K1 on the card); every LM
+around its reference position and around its predicted projection (one
+two-job launch of kernel K1 on the card); every LM
 evaluation then samples its pattern constellation inside those windows.
 The IC/pinhole level loop is one fused kernel on the card (K3,
 :mod:`hso_tpu_torch.track.coarse_cuda`); the FC variant runs the same loop
@@ -18,8 +19,9 @@ import torch
 
 from hso_tpu_torch.math import se3
 from hso_tpu_torch.math.robust import masked_mad_sigma, masked_median
-from hso_tpu_torch.ops.gatherless import clip_anchor, extract_windows, grid_in_window
+from hso_tpu_torch.ops.gatherless import clip_anchor, grid_in_window
 from hso_tpu_torch.ops.patterns import PATTERN_PADDING, PATTERNS
+from hso_tpu_torch.ops.window_cuda import extract_windows_multi
 from hso_tpu_torch.track.coarse_cuda import (coarse_level_ic, lm_level_loop, pattern_samples,
                                              robust_system)
 
@@ -78,25 +80,26 @@ def make_coarse_tracker(cam, max_level: int = 4, min_level: int = 1, n_iter: int
             uv0 = cam.world2cam(xyz_cur)
             return xyz_cur, uv0[:, 0] * scale, uv0[:, 1] * scale
 
-        # ---- reference side: windows + patches (+ IC Jacobians), once ----
+        # ---- windows: reference side at the features, current side at the
+        # incoming projection, both in one extraction ----
         u_r = px_ref[:, 0] * scale
         v_r = px_ref[:, 1] * scale
         vis = ((dist_ref > 0.0)
                & (torch.floor(u_r) - border >= 0) & (torch.floor(v_r) - border >= 0)
                & (torch.floor(u_r) + border < wr) & (torch.floor(v_r) + border < hr))
         au_r, av_r = clip_anchor(u_r, v_r, WIN, G, hr, wr)
-        w_ref = extract_windows(ref_img, au_r, av_r, WIN)
+        _, u_c0, v_c0 = project(T)
+        au_c, av_c = clip_anchor(u_c0, v_c0, WIN, G, h, w)
+        w_ref, w_cur = extract_windows_multi(
+            [(ref_img, au_r, av_r), (cur_img, au_c, av_c)], WIN)
+
+        # ---- reference side: patches (+ IC Jacobians), once ----
         ref_patch, rgx, rgy = pattern_samples(
             w_ref, u_r - c - au_r, v_r - c - av_r, c, pattern, with_grad=inverse)
         if inverse:
             Juv_r = _jacobian_uv_xi(xyz_ref)
             j_ic_raw = (rgx[..., None] * (fxl * Juv_r[:, None, 0, :])
                         + rgy[..., None] * (fyl * Juv_r[:, None, 1, :]))
-
-        # ---- current side: windows anchored at the incoming projection ----
-        _, u_c0, v_c0 = project(T)
-        au_c, av_c = clip_anchor(u_c0, v_c0, WIN, G, h, w)
-        w_cur = extract_windows(cur_img, au_c, av_c, WIN)
 
         def evaluate(T_e, a_e, huber, cutoff):
             """(E_norm, H, b, n_terms) at state (T_e, a_e)."""

@@ -2,6 +2,7 @@
 kernel modules import without a compiler or a GPU (the build is at first
 launch)."""
 
+import ctypes
 import os
 import pkgutil
 import subprocess
@@ -80,13 +81,17 @@ def test_kernel_sources_are_in_the_package():
             "no float atomics", ""), name
     assert "arch=compute_90a,code=sm_90a" in _cuda_build.NVCC_FLAGS
     # the six kernels take at least nine arguments each (pointers and the
-    # stream declared one by one); the plans, K3's override and the probe fewer
+    # stream declared one by one); K1's multi-job entry a table of jobs; the
+    # plans, K3's override and the probes fewer
     helpers = {"hso_coarse_launch_plan", "hso_coarse_plan_override", "hso_probe_latency",
-               "hso_zmncc_launch_plan", "hso_align_launch_plan"}
+               "hso_probe_tma", "hso_zmncc_launch_plan", "hso_align_launch_plan",
+               "hso_window_launch_plan"}
     assert helpers < set(_cuda_build._SIGNATURES)
+    jobs = _cuda_build._SIGNATURES["hso_extract_windows_jobs"]
+    assert jobs[0] is ctypes.POINTER(_cuda_build.WindowJob) and len(jobs) == 4
     assert all(len(sig) >= 9 for name, sig in _cuda_build._SIGNATURES.items()
-               if name not in helpers)
-    assert len(_cuda_build._SIGNATURES) == 6 + len(helpers)
+               if name not in helpers | {"hso_extract_windows_jobs"})
+    assert len(_cuda_build._SIGNATURES) == 7 + len(helpers)
     h1 = _cuda_build._source_hash()
     assert h1 == _cuda_build._source_hash() and len(h1) == 16
 
