@@ -20,6 +20,14 @@ prints how far K6 on the recorded call is from that version's K6, and the
 ``frame`` phase runs its 24 frames again on that version (K1 as two
 single-image launches a level) and requires every output to hold the same bits.
 
+Then the slice's own path: the evolving-map scan
+(``hso_tpu_torch.pipeline.scan.run_scan``) for 192 frames from the same
+checkpoint, with the keyframe work (BA, seed harvest and activation,
+detection feeding ``init_seeds``) at its 32 keyframe events; a second run of
+its first 48 frames must give the same bits, and its first keyframe event is
+run again on the CPU from the card's inputs.  The ``kernels`` summary counts
+the launches of the scan.
+
 Phases (one JSON line each): ``device``, ``build`` (with the registers, spills
 and static shared memory of every kernel, and the launch plans of K1/K2, K4 and
 K6 in Python and in C), ``kernels`` (one line per
@@ -27,8 +35,8 @@ kernel and shape; K3 at each of its four levels and in its variant that leaves
 the windows in global memory), ``latency`` (the card's own figures for a block
 barrier, a cluster barrier, the reductions and the scalar steps of K3 and K5,
 and the latency floor they give), ``track``, ``frame``, ``fc_frame`` (one frame
-forced through the forward-compositional branch, card against CPU), ``seeds``;
-then the ``{"kernels": [...]}`` summary, the card line and, last, the
+forced through the forward-compositional branch, card against CPU), ``seeds``,
+``scan``; then the ``{"kernels": [...]}`` summary, the card line and, last, the
 ``{"ok": true, "device": {...}}`` line.  Any failed check raises.
 """
 
@@ -41,7 +49,6 @@ import io
 import json
 import os
 import statistics
-import subprocess
 import sys
 import time
 
@@ -52,7 +59,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
 from hso_tpu_torch import _cuda_build  # noqa: E402
-from hso_tpu_torch.cameras import PinholeCamera  # noqa: E402
+from hso_tpu_torch.bench import (bench_camera, bench_scene, card_line,  # noqa: E402
+                                 render_frames, scan_ate, trajectory)
 from hso_tpu_torch.config import Config  # noqa: E402
 from hso_tpu_torch.image.pyramid import build_frame_pyramids  # noqa: E402
 from hso_tpu_torch.math import se3np  # noqa: E402
@@ -60,11 +68,9 @@ from hso_tpu_torch.mapping import depth_filter  # noqa: E402
 from hso_tpu_torch import testing  # noqa: E402
 from hso_tpu_torch.ops import align_cuda, epipolar, epipolar_cuda, window_cuda  # noqa: E402
 from hso_tpu_torch.ops.gatherless import clip_anchor  # noqa: E402
-from hso_tpu_torch.pipeline.fused_step import make_frame_step, make_track_step  # noqa: E402
+from hso_tpu_torch.pipeline import keyframe, scan  # noqa: E402
 from hso_tpu_torch.track import coarse_cuda, pose_cuda  # noqa: E402
 from hso_tpu_torch.utils import checkpoint  # noqa: E402
-from hso_tpu_torch.utils.evaluate import ate  # noqa: E402
-from hso_tpu_torch.utils.synthetic import BoxScene  # noqa: E402
 
 BOOT_NPZ = os.path.join(ROOT, "artifacts", "bench_boot.npz")
 N_FRAMES = 24
@@ -113,42 +119,11 @@ def read_counters() -> dict:
     return {name: d[name] for name, d in COUNTERS.items()}
 
 
-# ------------------------------------------------------------------ scene
-def bench_camera() -> PinholeCamera:
-    return PinholeCamera(640, 480, 400.0, 400.0, 320.0, 240.0)
-
-
-def bench_scene(cam) -> BoxScene:
-    return BoxScene(cam, half_width=2.0, half_height=1.5, depth=4.5, seed=3, stepped_back=True)
-
-
-def trajectory(n: int) -> list:
-    """Brisk oscillating sweep inside the box (the benchmark's trajectory)."""
-    poses = []
-    for k in range(n):
-        t = k / 18.0
-        xi = np.r_[0.8 * np.sin(0.8 * t), 0.12 * np.sin(0.5 * t), 0.10 * np.sin(0.35 * t),
-                   0.02 * np.sin(0.9 * t), -0.05 * np.sin(0.6 * t), 0.02 * np.sin(0.4 * t)]
-        poses.append(se3np.exp(xi))
-    return poses
-
-
-def grid_of(cam, cfg) -> tuple:
-    cell = max(int(np.sqrt(cam.width * cam.height / cfg.max_fts) * 0.8), 16)
-    return (cell, -(-cam.height // cell), -(-cam.width // cell))
-
-
 def build_step(cam, cfg, device, whole: bool = False):
-    """The tracking step, or with ``whole`` the whole per-frame step."""
-    grid = grid_of(cam, cfg)
-    n_obs_pad = max(cfg.n_fts_max, grid[1] * grid[2])
-    make = make_frame_step if whole else make_track_step
-    step = make(
-        cam, grid, cfg.klt_max_level, cfg.klt_min_level, cfg.coarse_n_iter,
-        cfg.coarse_pattern_offset, cfg.poseoptim_thresh, n_obs_pad=n_obs_pad,
-        edgelet_cos_angle=cfg.edgelet_angle, align_max_iter=cfg.align_max_iter,
-        patch_closest=(cfg.patch_source == "closest"), device=device)
-    return step, grid, n_obs_pad
+    """The tracking step, or with ``whole`` the whole per-frame step; its grid
+    and observation slot count."""
+    return (scan.make_scan_step(cam, cfg, device, whole), scan.frame_grid(cam, cfg),
+            scan.obs_slots(cam, cfg))
 
 
 # ------------------------------------------------------------------ timing
@@ -1128,7 +1103,8 @@ def keyframe_detections(book) -> tuple:
 
 def record_init_seeds(state0, book, out0, device) -> list:
     """The window gathers ``init_seeds`` makes when it fills the seed table
-    from the last keyframe's detections (recorded calls of K2's dispatcher)."""
+    from the last keyframe's observation table (recorded calls of K2's
+    dispatcher; the kernel timing tool's input)."""
     det_np, kf_pyr_np, host_slot = keyframe_detections(book)
     rec = Recorder(window_cuda.pack_level_windows_gather)
     with patched([(epipolar, "pack_level_windows_gather", rec)]):
@@ -1172,10 +1148,229 @@ def seed_life(seeds_np, det_np, pyr_np, host_slot, batch_id, depth_mean, depth_m
 
 
 def track_ate(recs, gt_poses) -> float:
-    est = np.stack([se3np.translation(se3np.inv(se3np.normalize(r["T_new"].astype(np.float64))))
-                    for r in recs])
-    gt = np.stack([se3np.translation(se3np.inv(T)) for T in gt_poses])
-    return ate(est, gt, with_scale=True).rmse
+    return scan_ate(np.stack([r["T_new"] for r in recs]), gt_poses)
+
+
+# ------------------------------------------------------------------ scan phase
+N_SCAN = 192             #: frames of the evolving-map scan (32 keyframe events)
+N_SCAN_REPEAT = 48       #: frames of the second run, held bit for bit (8 events)
+N_SCAN_PROFILE = 12      #: frames profiled for device kernels per frame (2 events)
+#: step outputs the keyframe body reads
+KF_OUT_KEYS = ("T_new", "exposure", "success", "inlier", "cid", "f_cur", "grad_cur", "species",
+               "level", "px", "depth_mean", "depth_min")
+
+
+def to_device(tree, device):
+    """A tree of dicts, tuples and tensors with every tensor on ``device``."""
+    if isinstance(tree, dict):
+        return {k: to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(to_device(v, device) for v in tree)
+    return tree.to(device) if isinstance(tree, torch.Tensor) else tree
+
+
+def run_scan_timed(step, carry, frames, cam, cfg, px_err, device, keep=(), mark=False):
+    """``run_scan`` with every frame synchronised and timed on the host clock.
+    Returns (result, ms per frame, {i: (step output, carry)} for the frames in
+    ``keep``).  With ``mark`` a tiny kernel after each frame marks its end in a
+    profile."""
+    ms, kept = [], {}
+    last = [0.0]
+
+    def on_frame(i, kf, out, carry_i):
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        ms.append((time.perf_counter() - last[0]) * 1e3)
+        if i in keep:
+            kept[i] = (out, carry_i)
+        if mark:
+            torch.cuda._sleep(1)
+        last[0] = time.perf_counter()
+
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    last[0] = time.perf_counter()
+    res = scan.run_scan(step, carry, frames, cam, cfg, px_err, on_frame=on_frame)
+    return res, ms, kept
+
+
+def profile_scan(step, carry, frames, cam, cfg, px_err, device):
+    """Device kernels (with copies and fills) and device-busy ms per frame over
+    a profiled scan, for frames without and with a keyframe event; a marker
+    kernel ends each frame.  A string when the profiler saw no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run_scan_timed(step, carry, frames, cam, cfg, px_err, device, mark=True)
+    events = sorted((e for e in prof.events()
+                     if str(getattr(e, "device_type", "")).endswith("CUDA")),
+                    key=lambda e: e.time_range.start)
+    per_frame, cur = [], []
+    for e in events:
+        if "spin_kernel" in e.name:
+            per_frame.append(cur)
+            cur = []
+        else:
+            cur.append(e.time_range.elapsed_us())
+    if len(per_frame) != len(frames):
+        return f"not measured: {len(per_frame)} frame markers in the profile of {len(frames)}"
+    doc = {}
+    for kind, want in (("non_keyframe", False), ("keyframe", True)):
+        sel = [f for i, f in enumerate(per_frame) if scan.is_keyframe(i) == want]
+        doc[kind] = dict(frames=len(sel),
+                         device_kernels_per_frame=sum(len(f) for f in sel) / len(sel),
+                         device_busy_ms_per_frame=sum(sum(f) for f in sel) / 1e3 / len(sel))
+    return doc
+
+
+def keyframe_card_vs_cpu(kept, stats_card, cam, cfg) -> dict:
+    """The scan's first keyframe event (frame 5) again on the CPU from the
+    card's inputs (the state after frame 4, frame 5's step output), held to
+    the card's result at the tolerances of ``tests/test_torch_keyframe.py``:
+    rows, ring, light words, host keyframes, point rows and cursor exact;
+    poses 1e-5; inverse distances and positions 1e-4 relative; the seed
+    table's integer members exact, its floats 1e-5 relative."""
+    cpu = torch.device("cpu")
+    out5, carry5 = kept[5]
+    out_in = {k: out5[k] for k in KF_OUT_KEYS}
+    out_in["data"] = {k: out5["data"][k] for k in ("pyr", "sobel_x", "sobel_y", "grad_mean")}
+    before = read_counters()
+    st_c, seeds_c, chk_c, stats_c = keyframe.keyframe_work(
+        to_device(kept[4][1]["st"], cpu), to_device(out5["seeds"], cpu), to_device(out_in, cpu),
+        cam, cfg)
+    assert read_counters() == before, "the CPU keyframe run launched a kernel"
+    st_k, seeds_k = to_device(carry5["st"], cpu), to_device(carry5["seeds"], cpu)
+    for k in ("rows_b", "rows_act"):
+        assert torch.equal(stats_card[k].cpu(), stats_c[k]), f"keyframe: {k} card != CPU"
+    for k in ("ba_pack", "light", "host_kf", "pt_pack", "species", "f_host", "ring_kf",
+              "ring_T", "cursor"):
+        assert torch.equal(st_k[k], st_c[k]), f"keyframe: st[{k}] card != CPU"
+    assert (st_k["kf_count"], st_k["batch"]) == (st_c["kf_count"], st_c["batch"])
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+    d = dict(kf_poses=float((st_k["kf_poses"] - st_c["kf_poses"]).abs().max()),
+             idist_rel=rel(st_k["idist"], st_c["idist"]), pos_w_rel=rel(st_k["pos_w"], st_c["pos_w"]),
+             chi2_final_rel=rel(stats_card["chi2_final"].cpu(), stats_c["chi2_final"]))
+    assert d["kf_poses"] <= 1e-5 and d["idist_rel"] <= 1e-4 and d["pos_w_rel"] <= 1e-4, d
+    assert d["chi2_final_rel"] <= 1e-3, d
+    for k, v in seeds_c.items():
+        if v.dtype.is_floating_point:
+            d[f"seeds_{k}_rel"] = rel(seeds_k[k], v)
+            assert d[f"seeds_{k}_rel"] <= 1e-5, (k, d)
+        else:
+            assert torch.equal(seeds_k[k], v), f"keyframe: seeds[{k}] card != CPU"
+    d["seeds_initialised"] = int(stats_c["seeds_initialised"])
+    d["activated"] = int(stats_c["activated"])
+    return d
+
+
+def record_keyframe_pack(kept, cam, cfg) -> list:
+    """The scan's first keyframe event (frame 5) run again on the card from
+    its inputs with a recorder on K2's dispatcher: the recorded calls hold the
+    win-44 window gather that ``init_seeds`` makes from the event's own
+    detections.  The rerun must give the scan's seed table bit for bit."""
+    out5, carry5 = kept[5]
+    rec = Recorder(window_cuda.pack_level_windows_gather)
+    with patched([(epipolar, "pack_level_windows_gather", rec)]):
+        _, seeds, _, _ = keyframe.keyframe_work(kept[4][1]["st"], out5["seeds"], out5, cam, cfg)
+    for k, v in seeds.items():
+        assert torch.equal(v, carry5["seeds"][k]), f"keyframe rerun: seeds[{k}] differs"
+    return rec.calls
+
+
+def scan_phase(cam, cfg, scene, device, smi, results, n_scan=N_SCAN, n_repeat=N_SCAN_REPEAT,
+               n_profile=N_SCAN_PROFILE):
+    """The evolving-map scan (the slice's own path) for ``n_scan`` frames from
+    the checkpoint; counters set to 0 just before, read just after; call sites
+    tallied by window edge.  Checks the gates, a second run of the first
+    ``n_repeat`` frames bit for bit and the first keyframe event against the
+    CPU, holds K2 against its plain version on the win-44 call of that event
+    (into ``results``, and a ``kernels`` line), profiles ``n_profile`` frames
+    (on a card), emits the ``scan`` line.  Returns (launches, tallies) of the
+    scan."""
+    carry0, meta = checkpoint.scan_state_from_checkpoint(BOOT_NPZ, cam, cfg, device)
+    start = meta["frame_count"]
+    gt_scan = trajectory(start + n_scan)[start:]
+    scan_frames = torch.as_tensor(render_frames(scene, gt_scan)).to(device)
+    scan_step = scan.make_scan_step(cam, cfg, device)
+    px_err = meta["px_error_angle"]
+    scan_args = (cam, cfg, px_err, device)
+    ctx, tallies_scan = shape_tallies()
+    with ctx:
+        zero_counters()
+        res, ms_scan, kept = run_scan_timed(scan_step, carry0, scan_frames, *scan_args,
+                                            keep=(4, 5, n_repeat - 1))
+        launches_scan = read_counters()
+    is_kf = [scan.is_keyframe(i) for i in range(n_scan)]
+    n_kf = sum(is_kf)
+    assert n_kf == len(res["kf_stats"]) == n_scan // scan.KF_EVERY
+    for name in FRAME_KERNELS:
+        assert launches_scan[name] > 0, f"kernel {name} was never launched on the scan"
+    for name, tally in tallies_scan.items():
+        assert sum(tally.counts.values()) == launches_scan[name], \
+            f"{name}: call sites {tally.counts} but {launches_scan[name]} launches"
+    assert tallies_scan["pack_level_windows"].counts[SEED_WIN] == n_kf, \
+        "K2 at win 44 is not launched once a keyframe"
+    traj_scan = res["traj"].cpu().numpy()
+    inliers_scan = res["n_inliers"].cpu().numpy()
+    assert np.isfinite(traj_scan).all() and np.isfinite(float(res["chk"]))
+    assert inliers_scan.min() >= 50, f"scan: a frame kept only {inliers_scan.min()} inliers"
+    rmse_scan = scan_ate(traj_scan, gt_scan)
+    assert rmse_scan < 0.10, f"scan: ATE RMSE {rmse_scan:.4f} m exceeds the 0.10 m gate"
+    kf_rows = [{k: float(v) for k, v in st.items() if v.ndim == 0} for st in res["kf_stats"]]
+    for j, r in enumerate(kf_rows):
+        assert r["chi2_final"] <= r["chi2_init"], f"keyframe {j}: BA chi2 rose {r}"
+        assert r["seeds_initialised"] > 0, f"keyframe {j}: no seed initialised"
+        assert 0 <= r["activated"] <= keyframe.R_ACT, f"keyframe {j}: {r['activated']} activated"
+    n_act = int(sum(r["activated"] for r in kf_rows))
+    assert n_act > 0, "the scan activated no seed"
+    assert int(res["carry"]["st"]["cursor"]) == n_act % keyframe.R_RES
+
+    # second run of the first 48 frames (8 keyframe events): the same bits
+    res2, _, _ = run_scan_timed(scan_step, carry0, scan_frames[:n_repeat], *scan_args)
+    assert torch.equal(res2["traj"], res["traj"][:n_repeat]), "scan, second run: poses"
+    carry_48 = kept[n_repeat - 1][1]
+    for k, v in res2["carry"]["st"].items():
+        same = torch.equal(v, carry_48["st"][k]) if isinstance(v, torch.Tensor) \
+            else v == carry_48["st"][k]
+        assert same, f"scan, second run: st[{k}] differs"
+    for k, v in res2["carry"]["seeds"].items():
+        assert torch.equal(v, carry_48["seeds"][k]), f"scan, second run: seeds[{k}] differs"
+
+    # the first keyframe event again on the CPU, from the card's inputs
+    kf_vs_cpu = keyframe_card_vs_cpu(kept, res["kf_stats"][0], cam, cfg)
+    # K2 at win 44 on the call that event makes (S = n_fts_max detections)
+    check_pack_one(record_keyframe_pack(kept, cam, cfg), SEED_WIN, "pack_level_windows@seed",
+                   device, results)
+    emit("kernels", name="pack_level_windows@seed", card=smi, **results["pack_level_windows@seed"])
+    del kept
+    prof_scan = (profile_scan(scan_step, carry0, scan_frames[:n_profile], *scan_args)
+                 if device.type == "cuda" and n_profile else "not measured: no profile run")
+    ms_non = [m for m, k in zip(ms_scan, is_kf) if not k]
+    ms_kf = [m for m, k in zip(ms_scan, is_kf) if k]
+    emit("scan", card=smi, frames=n_scan, first_frame=start, keyframe_events=n_kf,
+         point_rows=int(carry0["st"]["light"].shape[0]),
+         ms_per_frame_median_non_keyframe=statistics.median(ms_non),
+         ms_per_frame_median_keyframe=statistics.median(ms_kf),
+         ms_keyframe_extra_median=statistics.median(ms_kf) - statistics.median(ms_non),
+         ms_first_frame=ms_scan[0], ms_scan_total=sum(ms_scan),
+         device_per_frame=prof_scan, launches=launches_scan,
+         launches_per_frame={k: v / n_scan for k, v in launches_scan.items()},
+         launches_by_window={k: {str(w): n for w, n in t.counts.items()}
+                             for k, t in tallies_scan.items()},
+         min_inliers=int(inliers_scan.min()), ate_rmse_m=rmse_scan,
+         ba_chi2_init=[r["chi2_init"] for r in kf_rows],
+         ba_chi2_final=[r["chi2_final"] for r in kf_rows],
+         ba_points=[int(r["ba_points"]) for r in kf_rows],
+         seeds_initialised=[int(r["seeds_initialised"]) for r in kf_rows],
+         seeds_activated=[int(r["activated"]) for r in kf_rows],
+         detected=[int(r["detected"]) for r in kf_rows],
+         second_run_frames=n_repeat, second_run_bitwise_equal=True,
+         keyframe_card_vs_cpu=kf_vs_cpu, cpu_launched_no_kernel=True)
+
+    return launches_scan, tallies_scan
 
 
 def kernel_resources() -> dict:
@@ -1209,11 +1404,8 @@ def main() -> int:
               file=sys.stderr)
         return 2
     device = torch.device("cuda", 0)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0].strip()
+    scan.pin_float32_matmul()
+    smi = card_line()
     kind = torch.cuda.get_device_name(0)
     emit("device", kind=kind, count=torch.cuda.device_count(), card=smi,
          torch=torch.__version__, cuda=torch.version.cuda)
@@ -1237,7 +1429,7 @@ def main() -> int:
     poses = trajectory(frame_count + N_FRAMES)
     gt = poses[frame_count:frame_count + N_FRAMES]
     scene = bench_scene(cam)
-    frames = [scene.render(T) for T in gt]
+    frames = list(render_frames(scene, gt))
     det_np, kf_pyr_np, host_slot = keyframe_detections(book)
     n_slots = int(state0["seeds"]["valid"].shape[0])
 
@@ -1252,8 +1444,6 @@ def main() -> int:
     check_zmncc(rec["zmncc"], out0["data"]["pyr"], device, results, other)
     check_pack_one(rec["pack"], epipolar.EW, "pack_level_windows@sweep", device, results)
     check_align(rec["seed_align"], device, results, key="align_match@sweep", n_calls=1)
-    seed_calls = record_init_seeds(state0, book, out0, device)
-    check_pack_one(seed_calls, SEED_WIN, "pack_level_windows@seed", device, results)
     torch.cuda.synchronize(device)
     latency = latency_floor(results, device)
     for name, r in results.items():
@@ -1445,19 +1635,22 @@ def main() -> int:
          harvest_rows=list(life_k["harvest_rows"].shape),
          harvest_flag_flips_vs_cpu=flag_flips, mu_vs_cpu=d_mu_s, launches=launches_s)
 
+    launches_scan, tallies_scan = scan_phase(cam, cfg, scene, device, smi, results)
+
     def launches_of(key):
         """A results key is ``kernel`` or ``kernel@where``: launches of that
-        kernel at that entry's window edge, on the path that runs it."""
+        kernel at that entry's window edge over the scan."""
         name, _, where = key.partition("@")
+        counts = tallies_scan[name].counts if name in tallies_scan else None
         if where == "seed":
-            return name, tallies_s[name].counts[SEED_WIN]
+            return name, counts[SEED_WIN]
         if where == "sweep":
-            return name, tallies[name].counts[epipolar.EW]
+            return name, counts[epipolar.EW]
         if where.startswith("level"):
-            return name, tallies[name].counts[cam.height >> int(where[5:])]
-        if name in tallies:
-            return name, tallies[name].counts[24]
-        return name, launches_f[name]
+            return name, counts[cam.height >> int(where[5:])]
+        if counts is not None:
+            return name, counts[24]
+        return name, launches_scan[name]
 
     kernels = []
     for key, r in results.items():

@@ -9,8 +9,13 @@ version.
 
 Ported so far: the whole per-frame step
 (:func:`hso_tpu_torch.pipeline.fused_step.make_frame_step`: tracking,
-matching, pose refinement and the depth-filter seed sweep) and the seed
-table's life on the device (:mod:`hso_tpu_torch.mapping.depth_filter`).
+matching, pose refinement and the depth-filter seed sweep), the seed table's
+life on the device (:mod:`hso_tpu_torch.mapping.depth_filter`), and the
+benchmark's evolving-map scan (:func:`hso_tpu_torch.pipeline.scan.run_scan`)
+with its keyframe work: detection (:mod:`hso_tpu_torch.ops.detect`), the
+windowed Schur BA (:mod:`hso_tpu_torch.ba.local_ba`), seed harvest and
+activation (:mod:`hso_tpu_torch.pipeline.keyframe`); its entry point is
+``python -m hso_tpu_torch.bench``.
 """
 
 __version__ = "0.1.0"

@@ -247,3 +247,79 @@ def line_score_cases(s: int = 24, ew: int = 48, n_steps: int = 40, seed: int = 0
     return dict(windows=windows, ref_patch=ref, su0=su0, sv0=sv0, dir_u=du, dir_v=dv,
                 n_line=n_line, au=au, av=av, hs=np.full(s, h, np.int32),
                 ws=np.full(s, w, np.int32))
+
+
+# ------------------------------------------------------------------ detection
+def corner_test_image(h: int = 240, w: int = 320, step: int = 40) -> np.ndarray:
+    """Bright squares on dark: strong unambiguous corners (float32)."""
+    img = np.full((h, w), 30, np.float32)
+    for y in range(20, h - step, step):
+        for x in range(20, w - step, step):
+            img[y:y + step // 2, x:x + step // 2] = 220.0
+    return img
+
+
+def stripe_image(h: int = 240, w: int = 320, period: int = 24) -> np.ndarray:
+    """Diagonal stripes: edgelets whose normals lie along ±(1, 1)/√2 (uint8)."""
+    yy, xx = np.mgrid[0:h, 0:w]
+    return (127 + 120 * np.sign(np.sin((xx + yy) * 2 * np.pi / period))).astype(np.uint8)
+
+
+def low_texture_texture(size: int = 1024) -> np.ndarray:
+    """Smooth sinusoidal shading: no FAST corner and no edgelet at any level,
+    only the gradient species (a texture for ``PlaneScene``)."""
+    yy, xx = np.mgrid[0:size, 0:size]
+    return 127 + 8.0 * np.sin(2 * np.pi * xx / 300) * np.sin(2 * np.pi * yy / 300)
+
+
+# ------------------------------------------------------------------ bundle adjustment
+def ba_problem(n_kf: int = 6, n_pts: int = 120, seed: int = 0, noise_px: float = 0.0,
+               edge_frac: float = 0.25, pose_pert: float = 0.01, idist_pert: float = 0.05,
+               K: int = 8, P: int = 256, focal: float = 450.0) -> dict:
+    """A synthetic windowed BA with known ground truth in the solver's dense
+    (P, K) observation-grid layout: a ring of ``n_kf`` keyframes around a
+    point cloud, every point seen by every keyframe but its host, keyframes
+    0 and 1 held fixed (the monocular gauge), the others and the inverse
+    distances perturbed.  Returns numpy arrays (``obs`` a dict)."""
+    assert n_kf <= K and n_pts <= P
+    rng = np.random.default_rng(seed)
+    T_gt = np.stack([se3np.exp(np.r_[rng.uniform(-0.4, 0.4, 2), 0.05 * k,
+                                     rng.uniform(-0.05, 0.05, 3)]) for k in range(n_kf)])
+    p_w = np.stack([rng.uniform(-2, 2, n_pts), rng.uniform(-2, 2, n_pts),
+                    rng.uniform(4, 8, n_pts)], axis=-1)
+    host = rng.integers(0, n_kf, n_pts)
+    p_h = np.einsum("nij,nj->ni", T_gt[host][:, :3, :3], p_w) + T_gt[host][:, :3, 3]
+    dist = np.linalg.norm(p_h, axis=-1)
+    idist_gt = 1.0 / dist
+
+    obs = {"meas": np.zeros((P, K, 2), np.float32), "grad": np.zeros((P, K, 2), np.float32),
+           "is_edgelet": np.zeros((P, K), bool), "level": np.zeros((P, K), np.int32),
+           "valid": np.zeros((P, K), bool), "f_host": np.zeros((P, 3), np.float32),
+           "host": np.zeros(P, np.int32)}
+    for k in range(n_kf):
+        p_k = np.einsum("ij,nj->ni", T_gt[k][:3, :3], p_w) + T_gt[k][:3, 3]
+        for p in range(n_pts):
+            if k == host[p] or p_k[p, 2] < 0.1:
+                continue
+            obs["meas"][p, k] = p_k[p, :2] / p_k[p, 2] + rng.normal(0, noise_px / focal, 2)
+            g = rng.normal(size=2)
+            obs["grad"][p, k] = g / np.linalg.norm(g)
+            obs["is_edgelet"][p, k] = rng.uniform() < edge_frac
+            obs["level"][p, k] = rng.integers(0, 3)
+            obs["valid"][p, k] = True
+    obs["f_host"][:n_pts] = p_h / dist[:, None]
+    obs["host"][:n_pts] = host
+
+    T_init = T_gt.copy()
+    for k in range(2, n_kf):
+        T_init[k] = se3np.mul(se3np.exp(rng.normal(0, pose_pert, 6)), T_gt[k])
+    T_kf = np.tile(se3np.identity().astype(np.float32), (K, 1, 1))
+    T_kf[:n_kf] = T_init
+    free = np.zeros(K, bool)
+    free[2:n_kf] = True
+    idist = np.zeros(P, np.float32)
+    idist[:n_pts] = idist_gt * (1.0 + rng.normal(0, idist_pert, n_pts))
+    point_valid = np.zeros(P, bool)
+    point_valid[:n_pts] = True
+    return dict(T_gt=T_gt, idist_gt=idist_gt, obs=obs, T_kf=T_kf, free=free, idist=idist,
+                point_valid=point_valid, n_kf=n_kf, n_pts=n_pts, K=K, P=P)

@@ -3,7 +3,9 @@ tables from numpy arrays and from a saved checkpoint.
 
 The checkpoint is the JAX package's plain ``.npz`` (point table, keyframe
 poses and observation tables, seed state, pipeline counters, the last
-keyframe's pyramid); it is read here with numpy alone.
+keyframe's pyramid); it is read here with numpy alone.  The evolving-map
+scan's state (:func:`scan_state_from_checkpoint`) adds the map state its
+keyframe work rewrites.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import torch
 from hso_tpu_torch.mapping.depth_filter import empty_seeds
 from hso_tpu_torch.math import se3np
 from hso_tpu_torch.pipeline.fused_step import pack_light
+from hso_tpu_torch.pipeline.keyframe import R_RES
 
 SNAP_KEYS = ("pos_w", "kf_poses", "kf_exposure", "ring_T", "ring_exp", "pt_pack",
              "species", "light", "host_pack")
@@ -161,3 +164,81 @@ def frame_state_from_checkpoint(path: str, cam, cfg, device="cuda"):
     px_error_angle = float(math.atan(1.0 / (2.0 * cam.focal_mean)) * 2.0)
     return track + (seeds, z["seed_ring"].astype(np.int32), int(z["batch_counter"]),
                     px_error_angle)
+
+
+#: point-table members the keyframe work rewrites (padded to the scan's rows)
+SCAN_MUT_KEYS = ("light", "pos_w", "pt_pack", "species")
+
+
+def initial_obs_grid(z, n_rows: int, kw: int) -> np.ndarray:
+    """The dense (n_rows, kw, 7) observation ring of the windowed BA, rows
+    [meas_u, meas_v, grad_u, grad_v, edgelet, level, valid], filled from the
+    stored observation tables of the checkpoint's last ``kw`` keyframes
+    (column = keyframe index mod ``kw``)."""
+    pack = np.zeros((n_rows, kw, 7), np.float32)
+    n_kf = int(z["kf_count"])
+    for i in range(max(0, n_kf - kw), n_kf):
+        c = i % kw
+        pre = f"kf{i}_obs_"
+        sel = z[pre + "valid"] & (z[pre + "point_id"] >= 0)
+        pid = z[pre + "point_id"][sel]
+        f = z[pre + "f"][sel]
+        pack[pid, c, 0:2] = f[:, :2] / np.maximum(f[:, 2:3], 1e-9)
+        pack[pid, c, 2:4] = z[pre + "grad"][sel]
+        pack[pid, c, 4] = z[pre + "species"][sel] == 1
+        pack[pid, c, 5] = z[pre + "level"][sel]
+        pack[pid, c, 6] = 1.0
+    return pack
+
+
+def scan_state_from_checkpoint(path: str, cam, cfg, device="cuda"):
+    """The evolving-map scan's start state: :func:`frame_state_from_checkpoint`
+    and on top of it the map state that the keyframe work carries.
+
+    The point table gets ``R_RES`` rows for activated seeds (the keyframe
+    work's ring) and one trash row that absorbs masked writes
+    (``P_T = P + R_RES + 1``).  Returns
+    ``(carry, meta)``: ``carry`` holds the frame-to-frame state (``T``,
+    ``pyr``, ``grad_mean``, ``intensity``, ``exposure``, ``obs``, ``seeds``,
+    ``acc`` (2, P_T) and ``st``, the map state); ``meta`` the scan's
+    constants (``frame_count``, ``px_error_angle``, ``p0`` = P).
+
+    ``st`` holds the snapshot members the step reads (``light``, ``pos_w``,
+    ``pt_pack``, ``species`` padded to P_T; ``kf_poses``, ``kf_exposure``,
+    ``ring_T``, ``ring_exp``), the seed ring's keyframe indices ``ring_kf``,
+    the BA anchoring (``f_host``, ``host_kf`` padded with -1, ``idist``), the
+    (P_T, K, 7) observation ring ``ba_pack`` (K = ``cfg.n_kfs_window``), the
+    activation cursor (a device int32), and the host counters ``kf_count``
+    and ``batch`` (Python ints: they advance by one a keyframe)."""
+    dev = torch.device(device)
+    (snap, prev_pyr, grad_mean, intensity, exposure, T_prev, prev_obs, frame_count, seeds,
+     seed_ring, batch_counter, px_error_angle) = frame_state_from_checkpoint(path, cam, cfg, dev)
+    z = np.load(path, allow_pickle=False)
+    p0 = int(snap["pos_w"].shape[0])
+    p_t = p0 + R_RES + 1
+
+    def pad(a, fill=0):
+        out = torch.full((p_t,) + tuple(a.shape[1:]), fill, dtype=a.dtype, device=dev)
+        out[:p0] = a
+        return out
+
+    def t(a, dtype):
+        return torch.as_tensor(np.ascontiguousarray(a), device=dev).to(dtype)
+
+    st = {k: pad(snap[k]) for k in SCAN_MUT_KEYS}
+    st.update({k: snap[k] for k in ("kf_poses", "kf_exposure", "ring_T", "ring_exp")})
+    st["ring_kf"] = t(seed_ring, torch.int32)
+    st["f_host"] = pad(t(z["pt_host_f"], torch.float32))
+    st["host_kf"] = pad(t(z["pt_host_kf"], torch.int32), fill=-1)
+    st["idist"] = pad(t(z["pt_idist"], torch.float32))
+    st["ba_pack"] = t(initial_obs_grid(z, p_t, int(cfg.n_kfs_window)), torch.float32)
+    st["cursor"] = torch.zeros((), dtype=torch.int32, device=dev)
+    st["kf_count"] = int(z["kf_count"])
+    st["batch"] = int(batch_counter)
+    carry = dict(T=T_prev, pyr=prev_pyr,
+                 grad_mean=torch.tensor(grad_mean, dtype=torch.float32, device=dev),
+                 intensity=torch.tensor(intensity, dtype=torch.float32, device=dev),
+                 exposure=torch.tensor(exposure, dtype=torch.float32, device=dev),
+                 obs=prev_obs, seeds=seeds,
+                 acc=torch.zeros((2, p_t), dtype=torch.int32, device=dev), st=st)
+    return carry, dict(frame_count=frame_count, px_error_angle=px_error_angle, p0=p0)

@@ -26,8 +26,50 @@ def test_module_list_is_complete():
                  "hso_tpu_torch.utils.checkpoint", "hso_tpu_torch.testing",
                  "hso_tpu_torch.ops.epipolar", "hso_tpu_torch.ops.epipolar_cuda",
                  "hso_tpu_torch.mapping", "hso_tpu_torch.mapping.depth_filter",
-                 "hso_tpu_torch.image.interp", "hso_tpu_torch.tools.profile_track"):
+                 "hso_tpu_torch.image.interp", "hso_tpu_torch.tools.profile_track",
+                 "hso_tpu_torch.ops.detect", "hso_tpu_torch.ba", "hso_tpu_torch.ba.local_ba",
+                 "hso_tpu_torch.pipeline.keyframe", "hso_tpu_torch.pipeline.scan",
+                 "hso_tpu_torch.bench", "hso_tpu_torch.tools.reused_rows"):
         assert name in MODULES
+
+
+@pytest.mark.parametrize("module", ["pipeline/keyframe.py", "ba/local_ba.py", "ops/detect.py",
+                                    "pipeline/scan.py"])
+def test_keyframe_path_has_no_host_sync(module):
+    """The keyframe body and what it calls never wait on the device: no
+    ``.item()``, ``.tolist()``, ``nonzero``, ``bool(``/``int(``/``float(`` of a
+    tensor, and no tensor made from host data on the device."""
+    import re
+
+    with open(os.path.join(ROOT, "hso_tpu_torch", module)) as fh:
+        code = "\n".join(line.split("#")[0] for line in fh.read().splitlines())
+    body = code[code.index('"""', code.index('"""') + 3) + 3:]        # past the docstring
+    for pat in (r"\.item\(", r"\.tolist\(", r"nonzero", r"\.cpu\(", r"\.numpy\(",
+                r"new_tensor", r"torch\.tensor\(", r"as_tensor\(", r"bool\(\w+\[",
+                r"float\((out|st|ba|stats)\b"):
+        assert not re.search(pat, body), (module, pat)
+
+
+def test_bench_refuses_to_run_without_a_card():
+    """``python -m hso_tpu_torch.bench`` never falls back to the CPU quietly."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    res = subprocess.run([sys.executable, "-m", "hso_tpu_torch.bench"], cwd=ROOT,
+                         env=dict(os.environ, PYTHONPATH=ROOT), capture_output=True, text=True,
+                         timeout=300)
+    assert res.returncode == 2 and res.stdout == ""
+    assert "--device cpu" in res.stderr
+
+
+def test_reused_rows_tool_refuses_to_run_without_a_card():
+    """The diagnostic of reused activation rows asks for ``--device cpu``."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    res = subprocess.run([sys.executable, "-m", "hso_tpu_torch.tools.reused_rows"], cwd=ROOT,
+                         env=dict(os.environ, PYTHONPATH=ROOT), capture_output=True, text=True,
+                         timeout=300)
+    assert res.returncode == 2 and res.stdout == ""
+    assert "--device cpu" in res.stderr
 
 
 def test_fresh_interpreter_imports_everything_without_jax():
