@@ -28,6 +28,20 @@ its first 48 frames must give the same bits, and its first keyframe event is
 run again on the CPU from the card's inputs.  The ``kernels`` summary counts
 the launches of the scan.
 
+Then the host pipeline users call, ``FrameHandler.add_image``
+(``hso_tpu_torch.pipeline.frame_handler``): from frame 0 of the bench
+trajectory through the bootstrap (KLT, two-view geometry) into tracking and
+three keyframe events the handler decides itself, with the gates of the scan,
+its first 24 frames again bit for bit, the bootstrap again on the CPU; one
+black frame and the recovery; relocalization by the map (the checkpoint
+resumed without a keyframe pyramid) with a seed rescue and its pose
+refinement; the resumed loop timed as the bench times it, with its host syncs
+counted a frame and its device kernels profiled.  The kernel calls this
+path makes at shapes the step does not (K1 at win 16 and in ``align2d``,
+K2/K4 at S = 320, K3 with 15 iterations, K5 by the map and after the
+rescue, K6 on the backfill) are held against their plain versions; the
+``kernels`` summary adds each kernel's launches in this phase.
+
 Phases (one JSON line each): ``device``, ``build`` (with the registers, spills
 and static shared memory of every kernel, and the launch plans of K1/K2, K4 and
 K6 in Python and in C), ``kernels`` (one line per
@@ -36,7 +50,7 @@ the windows in global memory), ``latency`` (the card's own figures for a block
 barrier, a cluster barrier, the reductions and the scalar steps of K3 and K5,
 and the latency floor they give), ``track``, ``frame``, ``fc_frame`` (one frame
 forced through the forward-compositional branch, card against CPU), ``seeds``,
-``scan``; then the ``{"kernels": [...]}`` summary, the card line and, last, the
+``scan``, ``handler`` (its ``kernels`` lines first); then the ``{"kernels": [...]}`` summary, the card line and, last, the
 ``{"ok": true, "device": {...}}`` line.  Any failed check raises.
 """
 
@@ -69,7 +83,11 @@ from hso_tpu_torch import testing  # noqa: E402
 from hso_tpu_torch.ops import align_cuda, epipolar, epipolar_cuda, window_cuda  # noqa: E402
 from hso_tpu_torch.ops.gatherless import clip_anchor  # noqa: E402
 from hso_tpu_torch.pipeline import keyframe, scan  # noqa: E402
+from hso_tpu_torch.pipeline.frame_handler import (RESULT_FAILURE, RESULT_FRAME,  # noqa: E402
+                                                  RESULT_KEYFRAME, RESULT_NO_KEYFRAME,
+                                                  STAGE_DEFAULT, STAGE_RELOC)
 from hso_tpu_torch.track import coarse_cuda, pose_cuda  # noqa: E402
+from hso_tpu_torch.tools.time_lm_kernels import graph_ms  # noqa: E402
 from hso_tpu_torch.utils import checkpoint  # noqa: E402
 
 BOOT_NPZ = os.path.join(ROOT, "artifacts", "bench_boot.npz")
@@ -1373,6 +1391,637 @@ def scan_phase(cam, cfg, scene, device, smi, results, n_scan=N_SCAN, n_repeat=N_
     return launches_scan, tallies_scan
 
 
+# ------------------------------------------------------------------ handler phase
+N_LIVE = 60              #: frames of the live run from frame 0 (bootstrap, 3 decided events)
+N_LIVE_REPEAT = 24       #: frames of the second live run, held bit for bit
+N_RECOVER = 3            #: real frames after the black one within which tracking must return
+N_SPARSE = 60            #: matches a frame keeps to go through the seed rescue
+N_HOST_TIMED = 16        #: timed frames of the resumed host loop (the bench's count)
+N_HOST_WARM = 20         #: at most this many warm frames (three keyframe events)
+N_HOST_COUNTED = 8       #: frames of the resumed loop whose host syncs are counted
+N_HOST_PARTS = 8         #: frames of the resumed loop timed part by part
+N_HOST_PROFILE = 8       #: frames of the resumed loop profiled for device kernels
+#: handler methods whose kernel calls are tallied under a context of their own
+HANDLER_CONTEXTS = {
+    "_dispatch_default": "step", "_process_first": "first", "_process_second": "bootstrap",
+    "_add_keyframe_seeds": "kf_seeds", "_backfill_new_seeds": "backfill",
+    "_reproject_seeds": "seed_rescue", "_pose_refine_host": "pose_refine",
+    "_relocalize_attempt": "reloc", "_relocalize_by_map": "reloc_map",
+    "_kf_map_dispatch": "keyframe", "_kf_map_finish": "keyframe",
+    "_refresh_patch_sources": "keyframe",
+}
+
+
+class SiteTally:
+    """Counts the calls of the kernel dispatchers at their call sites by label
+    ``context:site:shape`` (the context is the innermost handler method of
+    ``HANDLER_CONTEXTS`` that is running) and keeps the arguments of the first
+    ``keep`` calls of every label."""
+
+    def __init__(self, keep: int = 16):
+        self.ctx = ["-"]
+        self.counts = {}
+        self.calls = {}
+        self.keep = keep
+
+    def site(self, kernel, site, fn, shape_of):
+        def wrapped(*args, **kw):
+            shape = shape_of(args, kw)
+            if shape is not None:                 # None: no row, no launch
+                label = f"{self.ctx[-1]}:{site}:{shape}"
+                d = self.counts.setdefault(kernel, {})
+                d[label] = d.get(label, 0) + 1
+                kept = self.calls.setdefault((kernel, label), [])
+                if len(kept) < self.keep:
+                    kept.append((args, kw))
+            return fn(*args, **kw)
+        return wrapped
+
+    def trace(self, handler):
+        """Wrap the handler's methods of ``HANDLER_CONTEXTS`` so that the
+        calls they make are labelled with their context."""
+        for name, ctx in HANDLER_CONTEXTS.items():
+            def wrapped(*a, _fn=getattr(handler, name), _ctx=ctx, **k):
+                self.ctx.append(_ctx)
+                try:
+                    return _fn(*a, **k)
+                finally:
+                    self.ctx.pop()
+            setattr(handler, name, wrapped)
+        return handler
+
+    def matching(self, kernel, *parts) -> list:
+        """The kept calls of ``kernel`` whose label holds every part, with
+        their tensor arguments made contiguous (as the dispatchers do)."""
+        def contig(a):
+            return a.contiguous() if isinstance(a, torch.Tensor) else a
+
+        return [(tuple(contig(a) for a in args), kw)
+                for (k, label), cs in sorted(self.calls.items())
+                if k == kernel and all(p in label for p in parts) for args, kw in cs]
+
+    def launches(self, kernel, *parts) -> int:
+        return sum(n for label, n in self.counts.get(kernel, {}).items()
+                   if all(p in label for p in parts))
+
+    def total(self, kernel) -> int:
+        return self.launches(kernel)
+
+
+def handler_sites(tally):
+    """The patch context that puts ``tally`` on every kernel call site the
+    handler reaches."""
+    from hso_tpu_torch.ops import align as align_mod, klt
+    from hso_tpu_torch.pipeline import frame_handler as fh
+    from hso_tpu_torch.track import coarse_tracker, matcher, pose_optimizer
+
+    def k1(a, k):
+        return f"win{a[3]} N{a[1].shape[0]}" if a[1].shape[0] else None
+
+    def k1_jobs(a, k):
+        return f"win{a[1]} jobs{len(a[0])}" if sum(j[1].shape[0] for j in a[0]) else None
+
+    def k4(a, k):
+        return f"win{k['win']} S{a[0].shape[0]}"
+
+    return patched([
+        (coarse_tracker, "extract_windows_multi", tally.site(
+            "extract_windows", "tracker", window_cuda.extract_windows_multi, k1_jobs)),
+        (klt, "extract_windows", tally.site("extract_windows", "klt", klt.extract_windows, k1)),
+        (align_mod, "extract_windows", tally.site("extract_windows", "align2d",
+                                                  align_mod.extract_windows, k1)),
+        (fh, "extract_windows", tally.site("extract_windows", "host", fh.extract_windows, k1)),
+        (epipolar, "pack_level_windows_gather", tally.site(
+            "pack_level_windows", "gather", window_cuda.pack_level_windows_gather,
+            lambda a, k: f"win{a[4]} S{a[1].shape[0]}")),
+        (coarse_tracker, "coarse_level_ic", tally.site(
+            "coarse_level_ic", "tracker", coarse_cuda.coarse_level_ic,
+            lambda a, k: f"h{k['h_img']} n_iter{k['n_iter']}")),
+        (matcher, "align_match", tally.site("align_match", "matcher", align_cuda.align_match,
+                                            k4)),
+        (depth_filter, "align_match", tally.site("align_match", "sweep", align_cuda.align_match,
+                                                 k4)),
+        (pose_optimizer, "pose_lm", tally.site("pose_lm", "pose", pose_cuda.pose_lm,
+                                               lambda a, k: f"N{a[1].shape[0]}")),
+        (epipolar, "zmncc_line_scores", tally.site(
+            "zmncc_line_scores", "line", epipolar_cuda.zmncc_line_scores,
+            lambda a, k: f"S{a[0].shape[0]} EW{a[0].shape[-1]}")),
+    ])
+
+
+def sync(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def drive_handler(h, frames, device, first_ts=0, on_frame=None):
+    """``h.add_image`` over ``frames``, each frame synchronised and timed on
+    the host clock.  Returns one record a frame: result, stage after, points,
+    whether the handler decided a keyframe on its own (stage DEFAULT before and
+    after, not the keyframe forced after the bootstrap), ms."""
+    recs = []
+    for k, img in enumerate(frames):
+        stage0, forced = h.stage, h.after_init
+        sync(device)
+        t0 = time.perf_counter()
+        r = h.add_image(img, ts=float(first_ts + k))
+        sync(device)
+        ms = (time.perf_counter() - t0) * 1e3
+        recs.append(dict(status=r.status, T=r.T_f_w.copy(), n_matches=r.n_matches,
+                         n_inliers=r.n_inliers, stage=h.stage, ms=ms,
+                         points=int(h.points.valid.sum()),
+                         decided=(r.status == RESULT_KEYFRAME and stage0 == STAGE_DEFAULT
+                                  and h.stage == STAGE_DEFAULT and not forced)))
+        if on_frame is not None:
+            on_frame(k, r)
+    return recs
+
+
+def count_host_waits(fn):
+    """Run ``fn`` with PyTorch's CUDA sync warnings on.  Returns (its result,
+    the stream synchronisations PyTorch reported, by the line that made them,
+    and the handler's waits on a copy it started earlier)."""
+    import warnings
+
+    from hso_tpu_torch.pipeline import frame_handler as fh
+
+    waits = [0]
+    orig = fh._Pending.numpy
+
+    def counted(self):
+        waits[0] += 1
+        return orig(self)
+
+    fh._Pending.numpy = counted
+    on_card = torch.cuda.is_available()
+    if on_card:
+        torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            res = fn()
+    finally:
+        if on_card:
+            torch.cuda.set_sync_debug_mode(0)
+        fh._Pending.numpy = orig
+    sites = {}
+    for w in caught:
+        if "synchroniz" in str(w.message).lower():
+            where = f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}"
+            sites[where] = sites.get(where, 0) + 1
+    return res, sites, waits[0]
+
+
+def profile_handler(h, frames, device, first_ts):
+    """Device kernels (with copies and fills) and device-busy ms per frame of
+    ``h.add_image`` over ``frames``, split by frames with and without a keyframe
+    event; a marker kernel ends each frame."""
+    from torch.profiler import ProfilerActivity, profile
+
+    statuses = []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for k, img in enumerate(frames):
+            statuses.append(h.add_image(img, ts=float(first_ts + k)).status)
+            torch.cuda._sleep(1)
+        sync(device)
+    events = sorted((e for e in prof.events()
+                     if str(getattr(e, "device_type", "")).endswith("CUDA")),
+                    key=lambda e: e.time_range.start)
+    per_frame, cur = [], []
+    for e in events:
+        if "spin_kernel" in e.name:
+            per_frame.append(cur)
+            cur = []
+        else:
+            cur.append(e.time_range.elapsed_us())
+    if len(per_frame) != len(frames):
+        return f"not measured: {len(per_frame)} frame markers in the profile of {len(frames)}"
+    doc = {}
+    for kind, want in (("non_keyframe", False), ("keyframe", True)):
+        sel = [f for f, s in zip(per_frame, statuses) if (s == RESULT_KEYFRAME) == want]
+        doc[kind] = dict(frames=len(sel),
+                         device_kernels_per_frame=(sum(len(f) for f in sel) / len(sel)
+                                                   if sel else None),
+                         device_busy_ms_per_frame=(sum(sum(f) for f in sel) / 1e3 / len(sel)
+                                                   if sel else None))
+    return doc
+
+
+#: handler methods timed part by part (exclusive host ms, synchronised at
+#: each part's ends), and the step the handler calls
+HANDLER_PARTS = ("_upload_image", "_snapshot", "_prev_obs_dev", "_h2d", "_finalize_default",
+                 "_writeback_obs", "_need_new_kf", "_kf_map_dispatch", "_backfill_new_seeds",
+                 "_kf_sync", "_refresh_patch_sources", "_run_ba", "_kf_map_finish")
+
+
+class PartTimer:
+    """Exclusive host ms of the handler's parts over a run of frames: each
+    part synchronises the device at its start and its end, and its time less
+    that of the parts it calls is its own.  ``add_image`` keeps the rest."""
+
+    def __init__(self, device):
+        self.device = device
+        self.stack = []
+        self.frame = {}
+
+    def wrap(self, name, fn):
+        def timed(*a, **k):
+            sync(self.device)
+            t0 = time.perf_counter()
+            self.stack.append(0.0)
+            try:
+                return fn(*a, **k)
+            finally:
+                sync(self.device)
+                dt = (time.perf_counter() - t0) * 1e3
+                inner = self.stack.pop()
+                self.frame[name] = self.frame.get(name, 0.0) + dt - inner
+                if self.stack:
+                    self.stack[-1] += dt
+        return timed
+
+    def run(self, h, frames, first_ts) -> dict:
+        """Median exclusive ms a part, over the frames without and with a
+        keyframe event."""
+        step = h._fused_step()
+        h._step = self.wrap("step", step)
+        for name in HANDLER_PARTS:
+            setattr(h, name, self.wrap(name, getattr(h, name)))
+        add = self.wrap("add_image (rest)", h.add_image)
+        rows = []
+        for k, img in enumerate(frames):
+            self.frame = {}
+            status = add(img, ts=float(first_ts + k)).status
+            rows.append((status == RESULT_KEYFRAME, self.frame))
+        for name in HANDLER_PARTS:
+            delattr(h, name)
+        h._step = step
+        doc = {}
+        for kind, want in (("non_keyframe", False), ("keyframe", True)):
+            sel = [f for kf, f in rows if kf == want]
+            names = sorted({n for f in sel for n in f})
+            doc[kind] = dict(frames=len(sel), **{
+                n: statistics.median(f.get(n, 0.0) for f in sel) for n in names})
+        return doc
+
+
+def handler_ate(recs, gt) -> float:
+    """Scale-aligned ATE of the frames the handler placed (the first keyframe
+    and every frame from the bootstrap on; not the bootstrap's waiting frames
+    nor failures)."""
+    idx = [i for i, r in enumerate(recs) if r["status"] not in (RESULT_NO_KEYFRAME,
+                                                                 RESULT_FAILURE)]
+    return scan_ate(np.stack([recs[i]["T"] for i in idx]), [gt[i] for i in idx])
+
+
+def hold_k1_calls(calls, key, device, results, launches):
+    """K1 on recorded single-image calls: the plain version's bits, a second
+    launch bitwise equal; timed on the last call."""
+    worst = 0.0
+    for (img, au, av, win), _ in calls:
+        img, au, av = img.contiguous(), au.contiguous(), av.contiguous()
+        got = window_cuda.extract_windows_cuda(img, au, av, win)
+        worst = max(worst, hold_windows([got], [window_cuda.extract_windows_plain(
+            img, au, av, win)], key))
+        hold_windows([window_cuda.extract_windows_cuda(img, au, av, win)], [got],
+                     f"{key}, again")
+    (img, au, av, win), _ = calls[-1]
+    img, au, av = img.contiguous(), au.contiguous(), av.contiguous()
+    n = au.shape[0]
+    b_ms, b_by = bound(2 * n * win * win * 4 + 2 * n * 4, 0)
+    results[key] = dict(
+        max_abs_err=worst, tol=0.0, calls_held=len(calls),
+        shape=f"N={n} win={win} image={img.shape[0]}x{img.shape[1]} ({len(calls)} calls held)",
+        ms=time_ms(lambda: window_cuda.extract_windows_cuda(img, au, av, win), device),
+        device_ms=graph_ms(time_ms, lambda: window_cuda.extract_windows_prepare(
+            img, au, av, win), device),
+        plain_ms=time_ms(lambda: window_cuda.extract_windows_plain(img, au, av, win), device,
+                         inner=2),
+        library_ms=gather_ms(img[None], torch.zeros_like(au), au, av, win, device),
+        bound_ms=b_ms, bound_by=b_by, phase_launches=launches)
+
+
+def hold_k2_calls(calls, key, device, results, launches):
+    worst = 0.0
+    for (pyr, level, au, av, win, n_levels), _ in calls:
+        pyr = [p.contiguous() for p in pyr[:n_levels]]
+        got = window_cuda.pack_level_windows_cuda(pyr, level, au, av, win, n_levels)
+        worst = max(worst, hold_windows([got], [window_cuda.pack_level_windows_plain(
+            pyr, level, au, av, win, n_levels)], key))
+        hold_windows([window_cuda.pack_level_windows_cuda(pyr, level, au, av, win, n_levels)],
+                     [got], f"{key}, again")
+    (pyr, level, au, av, win, n_levels), _ = calls[0]
+    pyr = [p.contiguous() for p in pyr[:n_levels]]
+    s = level.shape[0]
+    b_ms, b_by = bound(2 * s * win * win * 4 + 3 * s * 4, 0)
+    results[key] = dict(
+        max_abs_err=worst, tol=0.0, calls_held=len(calls),
+        shape=f"S={s} win={win} levels={n_levels} ({len(calls)} calls held)",
+        ms=time_ms(lambda: window_cuda.pack_level_windows_cuda(
+            pyr, level, au, av, win, n_levels), device),
+        device_ms=graph_ms(time_ms, lambda: window_cuda.pack_level_windows_prepare(
+            pyr, level, au, av, win, n_levels), device),
+        plain_ms=time_ms(lambda: window_cuda.pack_level_windows_plain(
+            pyr, level, au, av, win, n_levels), device, inner=2),
+        library_ms=gather_ms(level_stack(pyr, n_levels, device), level, au, av, win, device),
+        bound_ms=b_ms, bound_by=b_by, phase_launches=launches)
+
+
+def hold_k3_calls(calls, key, device, results, launches):
+    worst = 0.0
+    for args, kw in calls:
+        got = coarse_cuda.coarse_level_ic_cuda(*args, **kw)
+        ref = coarse_cuda.coarse_level_ic_plain(*args, **kw)
+        worst = max(worst, compare_coarse(got, ref, f"{key} (h {kw['h_img']})"))
+        again = coarse_cuda.coarse_level_ic_cuda(*args, **kw)
+        assert all(same_bits(x, y) for x, y in zip(got, again)), f"{key}: second run differs"
+    args, kw = max(calls, key=lambda c: c[1]["h_img"])    # level 0: the step never runs it
+    n, p = args[1].shape
+    iters = int(coarse_cuda.coarse_level_ic_cuda(*args, **kw)[4])
+    nbytes = n * 576 * 4 + n * p * 4 + n * p * 24 + n * 12 + n * 8 + n + 12 * 4 + 12 + 64
+    b_ms, b_by = bound(nbytes, (iters + 1) * (n * p * 100 + n * 30))
+    launch, _ = coarse_cuda.coarse_level_ic_prepare(*args, **kw)
+    results[key] = dict(
+        max_abs_err=worst, tol=1e-3, calls_held=len(calls),
+        shape=f"N={n} P={p} image={kw['h_img']}x{kw['w_img']}, n_iter={kw['n_iter']}, "
+              f"{iters} iterations ({len(calls)} levels held)",
+        ms=time_ms(launch, device),
+        device_ms=graph_ms(time_ms, lambda: coarse_cuda.coarse_level_ic_prepare(*args, **kw),
+                           device),
+        plain_ms=time_ms(lambda: coarse_cuda.coarse_level_ic_plain(*args, **kw), device,
+                         inner=2, n_timed=5, n_warm=1),
+        library_ms=None, bound_ms=b_ms, bound_by=b_by, phase_launches=launches)
+
+
+def hold_k4_calls(calls, key, device, results, launches):
+    worst = 0.0
+    for args, kw in calls:
+        got = align_cuda.align_match_cuda(*args, **kw)
+        worst = max(worst, compare_align(got, align_cuda.align_match_plain(*args, **kw), key))
+        assert same_bits(got, align_cuda.align_match_cuda(*args, **kw)), \
+            f"{key}: second launch differs"
+    args, kw = calls[0]
+    s = args[5].shape[0]
+    win, n_iter = kw["win"], kw["n_iter"]
+    b_ms, b_by = bound(s * (win * win + 100) * 4 + s * 34 + 8 * s * 4,
+                       s * ((n_iter + 1) * 64 * 32 + 64 * 40))
+    results[key] = dict(
+        max_abs_err=worst, tol=5e-3, calls_held=len(calls),
+        shape=f"S={s} win={win} n_iter={n_iter} ({int(args[4].sum())} rows valid; "
+              f"{len(calls)} calls held)",
+        ms=time_ms(lambda: align_cuda.align_match_cuda(*args, **kw), device),
+        device_ms=graph_ms(time_ms, lambda: align_cuda.align_match_prepare(*args, **kw),
+                           device),
+        plain_ms=time_ms(lambda: align_cuda.align_match_plain(*args, **kw), device, inner=2),
+        library_ms=None, bound_ms=b_ms, bound_by=b_by, phase_launches=launches)
+
+
+def hold_k5_calls(calls, key, device, results, launches):
+    worst = 0.0
+    for args, kw in calls:
+        got = pose_cuda.pose_lm_cuda(*args, **kw)
+        ref = pose_cuda.pose_lm_plain(*args, **kw)
+        d_T = se3_dist(got[0], ref[0])
+        assert d_T < 5e-4, f"{key}: pose LM disagrees: {d_T}"
+        assert abs(float(got[2]) - float(ref[2])) <= 0.05 * abs(float(ref[2])) + 1e-9, key
+        worst = max(worst, float((got[0] - ref[0]).abs().max()))
+        again = pose_cuda.pose_lm_cuda(*args, **kw)
+        assert all(same_bits(x, y) for x, y in zip(got, again)), f"{key}: second run differs"
+    args, kw = calls[0]
+    n = args[1].shape[0]
+    trials = int(pose_cuda.pose_lm_cuda(*args, **kw)[3])
+    b_ms, b_by = bound(n * 8 * 4 + 3 * n + 12 * 4 + 8 + 256, trials * n * 190 + n * 40)
+    launch, _ = pose_cuda.pose_lm_prepare(*args, **kw)
+    results[key] = dict(
+        max_abs_err=worst, tol=5e-4, calls_held=len(calls),
+        shape=f"N={n} ({int(args[7].sum())} valid), {trials} trials ({len(calls)} calls held)",
+        ms=time_ms(launch, device),
+        device_ms=graph_ms(time_ms, lambda: pose_cuda.pose_lm_prepare(*args, **kw), device),
+        plain_ms=time_ms(lambda: pose_cuda.pose_lm_plain(*args, **kw), device, inner=2),
+        library_ms=None, bound_ms=b_ms, bound_by=b_by, phase_launches=launches)
+
+
+def hold_k6_calls(calls, key, device, results, launches):
+    worst = 0.0
+    for args, _ in calls:
+        got = epipolar_cuda.zmncc_line_scores_cuda(*args)
+        worst = max(worst, compare_line_scores(
+            got, epipolar_cuda.zmncc_line_scores_plain(*args), key))
+        again = epipolar_cuda.zmncc_line_scores_cuda(*args)
+        assert all(same_bits(a, b) for a, b in zip(got, again)), f"{key}: second run differs"
+    args, _ = calls[0]
+    n_steps = args[11]
+    s, ew = args[0].shape[0], args[0].shape[-1]
+    n_live, _ = line_work(args)
+    ow = ew - 7
+    b_ms, b_by = bound(s * (ew * ew + 64) * 4 + s * 12 * 4,
+                       s * (ew * ow * 22 + ow * ow * (14 + 127 + 8) + n_steps * 30))
+    results[key] = dict(
+        max_abs_err=worst, tol=2e-4, calls_held=len(calls),
+        shape=f"S={s} EW={ew} n_steps={n_steps} ({n_live} rows with a step inside; "
+              f"{len(calls)} calls held)",
+        ms=time_ms(lambda: epipolar_cuda.zmncc_line_scores_cuda(*args), device),
+        device_ms=graph_ms(time_ms, lambda: epipolar_cuda.zmncc_line_scores_prepare(*args),
+                           device),
+        plain_ms=time_ms(lambda: epipolar_cuda.zmncc_line_scores_plain(*args), device,
+                         inner=2),
+        library_ms=None, bound_ms=b_ms, bound_by=b_by, phase_launches=launches)
+
+
+#: the handler's new call shapes: results key → (kernel, label parts, holder)
+HANDLER_SHAPES = {
+    "extract_windows@klt-templates": ("extract_windows", ("bootstrap:klt:", "win16"),
+                                      hold_k1_calls),
+    "extract_windows@klt-align2d": ("extract_windows", ("bootstrap:align2d:", "win24"),
+                                    hold_k1_calls),
+    "pack_level_windows@S320": ("pack_level_windows", ("win24 S320",), hold_k2_calls),
+    "align_match@S320": ("align_match", ("matcher:", "S320"), hold_k4_calls),
+    "coarse_level_ic@reloc": ("coarse_level_ic", ("reloc:", "n_iter15"), hold_k3_calls),
+    "pose_lm@reloc_map": ("pose_lm", ("reloc_map:",), hold_k5_calls),
+    "pose_lm@pose_refine": ("pose_lm", ("pose_refine:",), hold_k5_calls),
+    "zmncc_line_scores@backfill": ("zmncc_line_scores", ("backfill:",), hold_k6_calls),
+}
+
+
+def handler_phase(cam, cfg, scene, device, smi, results):
+    """``FrameHandler.add_image``, the entry point users call, on the card.
+
+    Live: a fresh handler from frame 0 of the bench trajectory through the
+    bootstrap into DEFAULT and three keyframe events it decides itself;
+    counters set to 0 just before, read just after; gates: no failure, ≥ 50
+    inliers a frame, ATE < 0.10 m; the first ``N_LIVE_REPEAT`` frames again,
+    bit for bit; the bootstrap again on the CPU.  Then one black frame and
+    recovery within ``N_RECOVER`` frames.  Then relocalization by the map
+    (the checkpoint resumed with no keyframe pyramid) and a seed rescue with
+    its pose refinement on that frame.  Then the resumed host loop:
+    ms a frame with and without an event, host syncs a frame, device kernels a
+    frame.  The new call shapes of the kernels (``HANDLER_SHAPES``) are held
+    against their plain versions on the calls recorded here.  Returns
+    (launches of the live run, {results key: launches at that shape})."""
+    from hso_tpu_torch.pipeline.frame_handler import FrameHandler
+
+    gt = trajectory(N_LIVE + 1 + N_RECOVER)
+    frames = render_frames(scene, gt)
+    tally = SiteTally()
+    with handler_sites(tally):
+        h = tally.trace(FrameHandler(cam, cfg, device=device))
+        zero_counters()
+        live = drive_handler(h, frames[:N_LIVE], device)
+        i_boot = next(i for i, r in enumerate(live) if r["stage"] == STAGE_DEFAULT)
+        decided = [i for i, r in enumerate(live) if r["decided"]]
+        # one black frame, then the frames from where the camera is
+        black = drive_handler(h, [np.zeros_like(frames[0])], device, first_ts=N_LIVE)
+        recover = drive_handler(h, frames[N_LIVE + 1:], device, first_ts=N_LIVE + 1)
+        launches_live = read_counters()
+    for name in FRAME_KERNELS:
+        assert launches_live[name] > 0, f"kernel {name} was never launched by the handler"
+    for name in COUNTERS:
+        assert tally.total(name) == launches_live[name], \
+            f"{name}: call sites {tally.counts.get(name)} but {launches_live[name]} launches"
+    assert not any(r["status"] == RESULT_FAILURE for r in live), \
+        [r["status"] for r in live]
+    assert len(decided) >= 3, f"the handler decided {len(decided)} keyframe events"
+    min_inl = min(r["n_inliers"] for r in live[i_boot:])
+    assert min_inl >= 50, f"handler: a frame kept only {min_inl} inliers"
+    ate_live = handler_ate(live, gt)
+    assert ate_live < 0.10, f"handler: ATE RMSE {ate_live:.4f} m exceeds the 0.10 m gate"
+    assert black[0]["status"] == RESULT_FAILURE and black[0]["stage"] == STAGE_RELOC
+    back = next((j for j, r in enumerate(recover)
+                 if r["status"] != RESULT_FAILURE and r["stage"] == STAGE_DEFAULT), None)
+    assert back is not None, f"no recovery within {N_RECOVER} frames: {recover}"
+    ate_all = handler_ate(live + recover[back:], gt[:N_LIVE] + gt[N_LIVE + 1 + back:])
+    assert ate_all < 0.10, f"handler after recovery: ATE RMSE {ate_all:.4f} m"
+
+    # the first N_LIVE_REPEAT frames again: the same bits
+    again = drive_handler(FrameHandler(cam, cfg, device=device), frames[:N_LIVE_REPEAT], device)
+    for k, (a, b) in enumerate(zip(live, again)):
+        for key in ("status", "n_matches", "n_inliers", "points"):
+            assert a[key] == b[key], f"handler, second run: frame {k} {key}"
+        assert np.array_equal(a["T"], b["T"]), f"handler, second run: frame {k} pose"
+
+    # the bootstrap on the CPU from the same frames
+    before = read_counters()
+    boot_cpu = drive_handler(FrameHandler(cam, cfg, device="cpu"), frames[:i_boot + 1],
+                             torch.device("cpu"))
+    assert read_counters() == before, "the CPU run launched a kernel"
+    assert [r["status"] for r in boot_cpu] == [r["status"] for r in live[:i_boot + 1]]
+    assert boot_cpu[-1]["points"] == live[i_boot]["points"]
+    d_t21 = float(np.abs(boot_cpu[-1]["T"] - live[i_boot]["T"]).max())
+    assert d_t21 <= 1e-5, f"bootstrap T_21 card vs CPU: {d_t21}"
+
+    # relocalization by the map: the checkpoint resumed without any keyframe
+    # pyramid, so the handler has only the memoized point windows; then a
+    # seed rescue and its pose refinement on that frame, and three frames on
+    z_start = int(np.load(BOOT_NPZ)["frame_count"])
+    gt_r = trajectory(z_start + N_HOST_WARM + N_HOST_TIMED + N_HOST_COUNTED + N_HOST_PARTS
+                      + N_HOST_PROFILE)[z_start:]
+    frames_r = render_frames(scene, gt_r)
+    with handler_sites(tally):
+        hm = tally.trace(FrameHandler(cam, cfg, device=device))
+        checkpoint.load_checkpoint(hm, BOOT_NPZ)
+        for f in hm.kfs.frames:
+            f.data = None
+        zero_counters()
+        by_map = drive_handler(hm, frames_r[:1], device, first_ts=z_start)
+        assert by_map[0]["status"] == RESULT_FRAME and hm.stage == STAGE_DEFAULT, by_map
+        # the frame made sparse (its first N_SPARSE matches kept), as the
+        # step's result is when fewer than 100 points match: the seed rescue
+        # fills it up with TEMPORARY points, the pose LM refines over both
+        f0 = hm.last_frame
+        f0.obs["valid"][N_SPARSE:] = False
+        f0.obs["point_id"][N_SPARSE:] = -1
+        n_temp = hm._reproject_seeds(f0, N_SPARSE)
+        n_refined, _ = hm._pose_refine_host(f0)
+        assert n_temp > 0, "the seed rescue matched no seed"
+        after_map = drive_handler(hm, frames_r[1:4], device, first_ts=z_start + 1)
+        launches_map = read_counters()
+    assert not any(r["status"] == RESULT_FAILURE for r in after_map)
+    assert min(r["n_inliers"] for r in after_map) >= 50
+    assert launches_map["pose_lm"] > 0 and tally.launches("pose_lm", "reloc_map:") > 0
+
+    # the resumed host loop (the bench's): warm through three keyframe
+    # events, time N_HOST_TIMED frames, count the host syncs, profile
+    hr = FrameHandler(cam, cfg, device=device)
+    checkpoint.load_checkpoint(hr, BOOT_NPZ, resume_stage="default")
+    k = n_kf = 0
+    while k < N_HOST_WARM and n_kf < 3:
+        n_kf += hr.add_image(frames_r[k], ts=float(z_start + k)).status == RESULT_KEYFRAME
+        k += 1
+    n_warm = k
+    timed = drive_handler(hr, frames_r[k:k + N_HOST_TIMED], device, first_ts=z_start + k)
+    k += N_HOST_TIMED
+    d_map = se3_dist(torch.as_tensor(by_map[0]["T"]), torch.as_tensor(
+        np.asarray(hr.trajectory[0][1])))
+    assert d_map < 0.05, f"relocalization by the map is {d_map} from the tracked pose"
+    counted = []                           # (status, syncs by line, copy waits) a frame
+    for j in range(k, k + N_HOST_COUNTED):
+        rec, sites, waits = count_host_waits(
+            lambda: drive_handler(hr, frames_r[j:j + 1], device, first_ts=z_start + j))
+        counted.append((rec[0]["status"], sites, waits))
+    k += N_HOST_COUNTED
+    host_parts = PartTimer(device).run(hr, frames_r[k:k + N_HOST_PARTS], z_start + k)
+    k += N_HOST_PARTS
+    plain_frames = [c for c in counted if c[0] != RESULT_KEYFRAME]
+    assert plain_frames, "every counted frame had a keyframe event"
+    for _, sites, waits in plain_frames if device.type == "cuda" else ():
+        # the step's FC/IC choice and the one copy of `packed`
+        assert sum(sites.values()) == 2 and waits == 0, \
+            f"a frame without a keyframe event waited on the device at {sites}, {waits}"
+    sync_sites = {}
+    for _, sites, _ in counted:
+        for where, n in sites.items():
+            sync_sites[where] = sync_sites.get(where, 0) + n
+    prof = (profile_handler(hr, frames_r[k:k + N_HOST_PROFILE], device, z_start + k)
+            if device.type == "cuda" else "not measured: no profile run")
+    assert hr.stage == STAGE_DEFAULT
+    ms_non = [r["ms"] for r in timed if r["status"] != RESULT_KEYFRAME]
+    ms_kf = [r["ms"] for r in timed if r["status"] == RESULT_KEYFRAME]
+    seconds = sum(r["ms"] for r in timed) / 1e3
+
+    # the new call shapes against their plain versions
+    shape_launches = {}
+    for key, (kernel, parts, hold) in HANDLER_SHAPES.items():
+        calls = tally.matching(kernel, *parts)
+        assert calls, f"{key}: no call recorded"
+        shape_launches[key] = tally.launches(kernel, *parts)
+        hold(calls, key, device, results, shape_launches[key])
+        emit("kernels", name=key, card=smi, **results[key])
+
+    emit("handler", card=smi, live_frames=N_LIVE, bootstrap_frame=i_boot,
+         statuses=[r["status"] for r in live], decided_keyframes=decided,
+         keyframes=len(h.kfs.frames), points=live[-1]["points"], min_inliers=min_inl,
+         ate_rmse_m=ate_live, ate_rmse_m_with_recovery=ate_all,
+         ms_live_median=statistics.median(r["ms"] for r in live[i_boot + 1:]),
+         black_frame=black[0]["status"], recovered_after=back + 1,
+         recover_statuses=[r["status"] for r in recover],
+         seed_rescue_launches={k_: tally.launches(k_, "seed_rescue:") for k_ in COUNTERS},
+         second_run_frames=N_LIVE_REPEAT, second_run_bitwise_equal=True,
+         bootstrap_card_vs_cpu=dict(frames=i_boot + 1, points=boot_cpu[-1]["points"],
+                                    t21_max_abs=d_t21),
+         reloc_by_map=dict(status=by_map[0]["status"], n_inliers=by_map[0]["n_inliers"],
+                           vs_tracked_pose=d_map, temporary_points=n_temp,
+                           refined_inliers=n_refined,
+                           statuses_after=[r["status"] for r in after_map],
+                           launches=launches_map),
+         host_loop=dict(loop="add_image (synchronous)", warm_frames=n_warm, warm_keyframes=n_kf, frames=N_HOST_TIMED,
+                        seconds=seconds, frames_per_s=N_HOST_TIMED / seconds,
+                        keyframe_events=len(ms_kf),
+                        ms_per_frame_median_non_keyframe=statistics.median(ms_non),
+                        ms_per_frame_median_keyframe=(statistics.median(ms_kf)
+                                                      if ms_kf else None),
+                        min_inliers=min(r["n_inliers"] for r in timed),
+                        counted_frames=N_HOST_COUNTED,
+                        counted_keyframe_events=len(counted) - len(plain_frames),
+                        stream_syncs_a_frame=[sum(c[1].values()) for c in counted],
+                        copy_waits_a_frame=[c[2] for c in counted],
+                        counted_statuses=[c[0] for c in counted],
+                        stream_syncs_by_line=sync_sites,
+                        host_ms_by_part=host_parts, device_per_frame=prof),
+         launches=launches_live,
+         launches_by_site={name: dict(sorted(c.items())) for name, c in tally.counts.items()})
+    return launches_live, shape_launches
+
+
 def kernel_resources() -> dict:
     """Registers, stack, spills and static shared memory of K1 and K2 (each
     window-edge instance), K3 (both instances), K4, K5 and K6, as ``ptxas -v``
@@ -1636,11 +2285,15 @@ def main() -> int:
          harvest_flag_flips_vs_cpu=flag_flips, mu_vs_cpu=d_mu_s, launches=launches_s)
 
     launches_scan, tallies_scan = scan_phase(cam, cfg, scene, device, smi, results)
+    launches_handler, handler_shapes = handler_phase(cam, cfg, scene, device, smi, results)
 
     def launches_of(key):
         """A results key is ``kernel`` or ``kernel@where``: launches of that
-        kernel at that entry's window edge over the scan."""
+        kernel at that entry's window edge over the scan, or for a call shape
+        of the handler phase, over that phase."""
         name, _, where = key.partition("@")
+        if key in handler_shapes:
+            return name, handler_shapes[key]
         counts = tallies_scan[name].counts if name in tallies_scan else None
         if where == "seed":
             return name, counts[SEED_WIN]
@@ -1662,6 +2315,8 @@ def main() -> int:
             replaces=KERNEL_META[name][1], launches=n, max_abs_err=r["max_abs_err"],
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"],
+            launches_in=("handler" if key in handler_shapes else "scan"),
+            handler_phase_launches=launches_handler[name],
             **{k: r[k] for k in ("latency_floor_ms", "launch_ms", "bound_work_done_ms")
                if k in r}))
     print(json.dumps({"kernels": kernels}), flush=True)

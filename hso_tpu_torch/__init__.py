@@ -15,7 +15,11 @@ benchmark's evolving-map scan (:func:`hso_tpu_torch.pipeline.scan.run_scan`)
 with its keyframe work: detection (:mod:`hso_tpu_torch.ops.detect`), the
 windowed Schur BA (:mod:`hso_tpu_torch.ba.local_ba`), seed harvest and
 activation (:mod:`hso_tpu_torch.pipeline.keyframe`); its entry point is
-``python -m hso_tpu_torch.bench``.
+``python -m hso_tpu_torch.bench``.  And the host pipeline users call,
+:class:`hso_tpu_torch.pipeline.frame_handler.FrameHandler` (``add_image``:
+bootstrap, tracking with its keyframe events and BA, seed rescue,
+relocalization, reset), with checkpoints
+(:mod:`hso_tpu_torch.utils.checkpoint`).
 """
 
 __version__ = "0.1.0"

@@ -117,7 +117,9 @@ def init_seeds(seeds, det, kf_pyr, f_det, host_slot, batch_id, depth_mean, depth
     sig0 = zr0 * zr0 / 36.0
 
     def full(value, dtype=f32):
-        return torch.as_tensor(value, device=dev).to(dtype).reshape(()).expand(n_det)
+        if not isinstance(value, torch.Tensor):       # a fill, not a copy from the host
+            return torch.full((n_det,), value, dtype=dtype, device=dev)
+        return value.to(dev).to(dtype).reshape(()).expand(n_det)
 
     assign = {
         "valid": torch.ones((n_det,), dtype=torch.bool, device=dev),

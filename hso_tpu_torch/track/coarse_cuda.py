@@ -61,12 +61,23 @@ def coarse_launch_plan(n: int, p: int) -> tuple:
     return CLUSTER, threads, resident, smem
 
 
+_PATTERNS_ON = {}
+
+
+def _pattern_tensor(pattern, device) -> torch.Tensor:
+    """The pattern's offsets as a (P, 2) float32 tensor on ``device``, copied
+    there once (a copy from the host waits for the device)."""
+    key = (tuple(map(tuple, pattern)), str(device))
+    if key not in _PATTERNS_ON:
+        _PATTERNS_ON[key] = torch.as_tensor(key[0], dtype=torch.float32, device=device)
+    return _PATTERNS_ON[key]
+
+
 def pattern_samples(windows, rel_u, rel_v, center: int, pattern, with_grad: bool):
     """Pattern values (N, P) [+ central-difference gradients] sampled inside
     each window; ``rel_u/rel_v`` locate grid point (0, 0), the pattern centre
     sits at grid point (center, center)."""
-    dev = windows.device
-    pat = torch.as_tensor(pattern, dtype=torch.float32, device=dev)        # (P, 2)
+    pat = _pattern_tensor(pattern, windows.device)                         # (P, 2)
     pu = rel_u[:, None] + (center + pat[:, 0])[None, :]
     pv = rel_v[:, None] + (center + pat[:, 1])[None, :]
     if not with_grad:

@@ -67,7 +67,7 @@ def optimize_pose(T_f_w, p_world, f_obs, level, grad, is_edgelet, is_temporary, 
     err_init = med_px(r_abs0 * r_abs0, valid)
     err_final = med_px(r_abs_f * r_abs_f, valid)
     eye6 = torch.eye(6, dtype=torch.float32, device=T.device)
-    cov = torch.linalg.inv(A_last * focal * focal + eye6 * 1e-12)
+    cov = torch.linalg.inv_ex(A_last * focal * focal + eye6 * 1e-12).inverse   # no error sync
     error_weight = torch.where(err_final < 1.5, torch.ones_like(err_final),
                                1.5 / torch.clamp_min(err_final, 1.5))
     return {

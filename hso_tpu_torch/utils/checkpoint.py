@@ -1,11 +1,14 @@
-"""Map and seed state carried into the per-frame step: snapshots and seed
-tables from numpy arrays and from a saved checkpoint.
+"""Map-state checkpoints, and the state the per-frame step and the scan carry:
+snapshots and seed tables from numpy arrays and from a saved checkpoint.
 
-The checkpoint is the JAX package's plain ``.npz`` (point table, keyframe
-poses and observation tables, seed state, pipeline counters, the last
-keyframe's pyramid); it is read here with numpy alone.  The evolving-map
-scan's state (:func:`scan_state_from_checkpoint`) adds the map state its
-keyframe work rewrites.
+A checkpoint is one plain ``.npz`` (point table, keyframe poses and
+observation tables, seed state, pipeline counters, the last keyframe's
+pyramid), the layout the JAX package writes and reads: a file written by
+either side loads into the other's ``FrameHandler``.  It is read here with
+numpy alone.  :func:`save_checkpoint`/:func:`load_checkpoint` take a
+:class:`~hso_tpu_torch.pipeline.frame_handler.FrameHandler`; the
+evolving-map scan's state (:func:`scan_state_from_checkpoint`) adds the map
+state its keyframe work rewrites.
 """
 
 from __future__ import annotations
@@ -242,3 +245,106 @@ def scan_state_from_checkpoint(path: str, cam, cfg, device="cuda"):
                  obs=prev_obs, seeds=seeds,
                  acc=torch.zeros((2, p_t), dtype=torch.int32, device=dev), st=st)
     return carry, dict(frame_count=frame_count, px_error_angle=px_error_angle, p0=p0)
+
+
+#: point-table members in the checkpoint, as ``pt_<name>``
+PT_SAVED = ("valid", "type", "host_kf", "host_px", "host_f", "host_level", "species", "grad",
+            "idist", "host_win", "host_anchor", "n_succ", "n_fail", "patch_kf", "patch_px",
+            "patch_f", "patch_level", "patch_grad", "patch_win", "patch_anchor", "last_obs_kf")
+
+
+def save_checkpoint(handler, path: str) -> None:
+    """Write the handler's map state (point table, keyframe poses and
+    observation tables, seed table, pipeline counters, the last keyframe's
+    pyramid and statistics) to ``path`` as an uncompressed ``.npz``."""
+    pts = handler.points
+    blobs = {f"pt_{k}": getattr(pts, k) for k in PT_SAVED}
+    blobs.update({
+        "kf_poses": handler.kfs.poses, "kf_exposure": handler.kfs.exposure,
+        "kf_count": np.int64(len(handler.kfs.frames)),
+        "batch_counter": np.int64(handler.batch_counter),
+        "frame_count": np.int64(handler.frame_count),
+        "seed_ring": handler.seed_ring,
+        "motion_model": handler.motion_model,
+        "mean_converge_frames": np.float64(handler.mean_converge_frames),
+    })
+    for i, kf in enumerate(handler.kfs.frames):
+        blobs[f"kf{i}_T"] = kf.T_f_w
+        blobs[f"kf{i}_ts"] = np.float64(kf.timestamp)
+        for k, v in kf.obs.items():
+            blobs[f"kf{i}_obs_{k}"] = v
+    # the last keyframe's pyramid lets the photometric relocalizer (or the
+    # default path, with resume_stage="default") run right after a resume
+    last = handler.kfs.frames[-1] if handler.kfs.frames else None
+    if last is not None and last.data is not None:
+        for lvl, img in enumerate(last.data["pyr"]):
+            blobs[f"lastkf_pyr_{lvl}"] = img.detach().cpu().numpy()
+        blobs["lastkf_stats"] = np.array([last.grad_mean, last.intensity_mean, last.exposure])
+    for k, v in seeds_to_numpy(handler.seeds).items():
+        blobs[f"seed_{k}"] = v
+    # uncompressed: the bulk is float32 image windows, where deflate costs
+    # minutes for a few percent
+    np.savez(path, **blobs)
+
+
+def load_checkpoint(handler, path: str, resume_stage: str | None = None) -> None:
+    """Restore map state into a fresh ``FrameHandler`` (same camera and
+    config); the last keyframe's pyramid goes to ``handler.device``.
+
+    ``resume_stage="default"`` resumes straight into the default tracking
+    path (valid only when the next frame is adjacent to the saved last
+    keyframe, whose pyramid is stored); the default ``None`` re-enters
+    through RELOCALIZING."""
+    from hso_tpu_torch.mapmodel.structures import Frame, empty_obs
+    from hso_tpu_torch.pipeline.frame_handler import STAGE_DEFAULT, STAGE_RELOC
+
+    z = np.load(path, allow_pickle=False)
+    pts = handler.points
+    for k in PT_SAVED:
+        if f"pt_{k}" in z.files:
+            setattr(pts, k, z[f"pt_{k}"].copy())
+    if "pt_patch_kf" not in z.files:       # written before patch sources existed
+        pts.init_patch_from_host(np.arange(pts.p_max))
+    pts._free = [i for i in range(pts.p_max - 1, -1, -1) if not pts.valid[i]]
+
+    handler.kfs.poses = z["kf_poses"].copy()
+    handler.kfs.exposure = z["kf_exposure"].copy()
+    handler.kfs.frames = []
+    for i in range(int(z["kf_count"])):
+        obs = empty_obs(handler._n_obs_pad)
+        for k in obs:
+            obs[k] = z[f"kf{i}_obs_{k}"].copy()
+        handler.kfs.frames.append(Frame(
+            frame_id=-1, timestamp=float(z[f"kf{i}_ts"]), T_f_w=z[f"kf{i}_T"].copy(),
+            data=None, obs=obs, is_keyframe=True, kf_index=i))
+
+    # the inverted point→(kf, slot) index is derived state: rebuilt here
+    pts.obs_refs = [[] for _ in range(pts.p_max)]
+    for f in handler.kfs.frames:
+        pts.register_obs(f)
+
+    if "lastkf_pyr_0" in z.files and handler.kfs.frames:
+        pyr = []
+        while f"lastkf_pyr_{len(pyr)}" in z.files:
+            pyr.append(torch.as_tensor(z[f"lastkf_pyr_{len(pyr)}"], dtype=torch.float32)
+                       .to(handler.device))
+        last = handler.kfs.frames[-1]
+        last.data = {"pyr": tuple(pyr)}
+        gm, im, exp = z["lastkf_stats"]
+        last.grad_mean = float(gm)
+        last.intensity_mean = float(im)
+        last.exposure = float(exp)
+
+    handler.seeds = seeds_from_numpy({k[len("seed_"):]: z[k] for k in z.files
+                                      if k.startswith("seed_")}, handler.device)
+    handler.batch_counter = int(z["batch_counter"])
+    handler.frame_count = int(z["frame_count"])
+    handler.seed_ring = z["seed_ring"].copy()
+    handler.motion_model = z["motion_model"].copy()
+    handler.mean_converge_frames = float(z["mean_converge_frames"])
+    handler.last_frame = handler.kfs.frames[-1] if handler.kfs.frames else None
+    if (resume_stage == "default" and handler.last_frame is not None
+            and handler.last_frame.data is not None):
+        handler.stage = STAGE_DEFAULT
+    else:
+        handler.stage = STAGE_RELOC

@@ -29,7 +29,10 @@ def test_module_list_is_complete():
                  "hso_tpu_torch.image.interp", "hso_tpu_torch.tools.profile_track",
                  "hso_tpu_torch.ops.detect", "hso_tpu_torch.ba", "hso_tpu_torch.ba.local_ba",
                  "hso_tpu_torch.pipeline.keyframe", "hso_tpu_torch.pipeline.scan",
-                 "hso_tpu_torch.bench", "hso_tpu_torch.tools.reused_rows"):
+                 "hso_tpu_torch.bench", "hso_tpu_torch.tools.reused_rows",
+                 "hso_tpu_torch.mapmodel", "hso_tpu_torch.mapmodel.structures",
+                 "hso_tpu_torch.math.epipolar_geometry", "hso_tpu_torch.ops.klt",
+                 "hso_tpu_torch.pipeline.ba_glue", "hso_tpu_torch.pipeline.frame_handler"):
         assert name in MODULES
 
 
@@ -48,6 +51,15 @@ def test_keyframe_path_has_no_host_sync(module):
                 r"new_tensor", r"torch\.tensor\(", r"as_tensor\(", r"bool\(\w+\[",
                 r"float\((out|st|ba|stats)\b"):
         assert not re.search(pat, body), (module, pat)
+
+
+def test_frame_handler_defaults_to_the_card():
+    """``FrameHandler`` runs on the card unless the caller asks for the CPU."""
+    import inspect
+
+    from hso_tpu_torch.pipeline.frame_handler import FrameHandler
+
+    assert inspect.signature(FrameHandler).parameters["device"].default == "cuda"
 
 
 def test_bench_refuses_to_run_without_a_card():
