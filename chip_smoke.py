@@ -42,6 +42,16 @@ K2/K4 at S = 320, K3 with 15 iterations, K5 by the map and after the
 rescue, K6 on the backfill) are held against their plain versions; the
 ``kernels`` summary adds each kernel's launches in this phase.
 
+Then the dataset path users call: the box sequence's first 96 frames written
+by ``hso_tpu_torch.tools.make_synthetic_dataset`` (PNG by the port's own
+codec) and read back pixel for pixel, run through ``hso_tpu_torch.run_dataset``'s
+loop with tracing on (trajectory file, ATE against its ground truth, trace
+CSV), again bit for bit with the host syncs of its last frames counted, and
+48 frames through a photometrically distorted camera with online
+calibration (the last solve and one corrected frame also on the CPU).  The
+``kernels`` summary adds each kernel's launches in the first run
+(``dataset_phase_launches``).
+
 Phases (one JSON line each): ``device``, ``build`` (with the registers, spills
 and static shared memory of every kernel, and the launch plans of K1/K2, K4 and
 K6 in Python and in C), ``kernels`` (one line per
@@ -50,7 +60,7 @@ the windows in global memory), ``latency`` (the card's own figures for a block
 barrier, a cluster barrier, the reductions and the scalar steps of K3 and K5,
 and the latency floor they give), ``track``, ``frame``, ``fc_frame`` (one frame
 forced through the forward-compositional branch, card against CPU), ``seeds``,
-``scan``, ``handler`` (its ``kernels`` lines first); then the ``{"kernels": [...]}`` summary, the card line and, last, the
+``scan``, ``handler`` (its ``kernels`` lines first), ``dataset``; then the ``{"kernels": [...]}`` summary, the card line and, last, the
 ``{"ok": true, "device": {...}}`` line.  Any failed check raises.
 """
 
@@ -292,13 +302,17 @@ def level_stack(pyr, n_levels, device):
     return stack
 
 
-def gather_ms(stack, level, au, av, win, device):
+def gather_ms(stack, level, au, av, win, device, graph: bool = False):
     """Time of one advanced-indexing gather of the same windows from a padded
-    level stack (the library yardstick of K1/K2)."""
+    level stack (the library yardstick of K1/K2): its call rate, or with
+    ``graph`` its device ms from a replayed CUDA graph."""
     ar = torch.arange(win, device=device)
     rows = av.long()[:, None] + ar
     cols = au.long()[:, None] + ar
     lv = level.long()[:, None, None]
+    if graph:
+        return graph_ms(time_ms, lambda: ((lambda: stack[lv, rows[:, :, None],
+                                                         cols[:, None, :]]), None), device)
     return time_ms(lambda: stack[lv, rows[:, :, None], cols[:, None, :]], device)
 
 
@@ -813,9 +827,13 @@ def check_pack_one(calls, win, key, device, results):
         shape=f"S={s} win={win} levels={n_levels}",
         ms=time_ms(lambda: window_cuda.pack_level_windows_cuda(
             pyr, level, au, av, win, n_levels), device),
+        device_ms=graph_ms(time_ms, lambda: window_cuda.pack_level_windows_prepare(
+            pyr, level, au, av, win, n_levels), device),
         plain_ms=time_ms(lambda: window_cuda.pack_level_windows_plain(
             pyr, level, au, av, win, n_levels), device, inner=2),
         library_ms=gather_ms(level_stack(pyr, n_levels, device), level, au, av, win, device),
+        library_device_ms=gather_ms(level_stack(pyr, n_levels, device), level, au, av, win,
+                                    device, graph=True),
         bound_ms=b_ms, bound_by=b_by)
 
 
@@ -2022,6 +2040,263 @@ def handler_phase(cam, cfg, scene, device, smi, results):
     return launches_live, shape_launches
 
 
+N_DATASET = 96           #: frames of the box sequence written, read back and run twice
+N_DATASET_COUNTED = 8    #: frames of the second run whose host syncs are counted (no trace)
+N_PHOTO = 48             #: distorted frames of the photometric run
+N_PHOTO_COUNTED = 6      #: frames of the photometric run whose host syncs are counted
+N_PHOTO_TIMED = 18       #: frames before the counted ones timed with photo on and off
+PHOTO_SOLVE_EVERY = 6    #: the calibrator's solve_every = min_frames in the photometric run
+#: card against CPU on the last solve's samples, and on one corrected frame.
+#: On the pipeline's samples float32 rounding alone (the CPU at 1 and 8
+#: threads) moves a solve along the gamma ambiguity (U^α, e^α, V^α): c by up
+#: to 0.25, log_e by 2e-4, α by 1.2e-3.  So the solve is held modulo α, as
+#: tests/test_torch_pipeline_photometric.py holds it: rms_after, log_e after
+#: the common factor α, α itself; c and v are printed.
+PHOTO_TOL = dict(rms_after=1e-5, log_e_mod_alpha=1e-4, alpha_off_1=5e-3, correct_grey=1e-3)
+
+
+def frame_ms_by_kind(run, lo=0) -> dict:
+    """Median and mean host ms of ``run_frames``' frames from ``lo`` on: of
+    the frames without an event (status ``frame``) and of all of them."""
+    pairs = list(zip(run["results"], run["frame_ms"]))[lo:]
+    plain = [ms for r, ms in pairs if r.status == RESULT_FRAME]
+    events = [ms for r, ms in pairs if r.status == RESULT_KEYFRAME]
+    return dict(frames=len(pairs), mean_ms=statistics.mean(ms for _, ms in pairs),
+                median_ms_without_event=statistics.median(plain) if plain else None,
+                median_ms_event=statistics.median(events) if events else None,
+                events=len(events))
+
+
+def keyframe_record(vo) -> tuple:
+    """(keyframe timestamps, their camera centres) of a handler."""
+    kfs = vo.kfs.frames
+    return ([kf.timestamp for kf in kfs],
+            np.stack([se3np.translation(se3np.inv(kf.T_f_w)) for kf in kfs]))
+
+
+def count_frames(vo, reader, lo, hi, on_frame=None):
+    """``run_frames`` one frame at a time from ``lo`` to ``hi`` with the host
+    syncs counted (``count_host_waits``): [(status, stream syncs, copy waits)]."""
+    from hso_tpu_torch import run_dataset
+
+    counted = []
+    for j in range(lo, hi):
+        run, sites, waits = count_host_waits(lambda: run_dataset.run_frames(vo, reader, j, j + 1))
+        counted.append((run["results"][0].status, sum(sites.values()), waits, sites))
+        if on_frame is not None:
+            on_frame(j)
+    return counted
+
+
+def photometric_card_vs_cpu(call, calib, img, device) -> dict:
+    """The last solve's samples through ``solve_photometric`` on the card and
+    on the CPU, and one frame through ``correct_image`` on both with the
+    calibrator's estimate: distances against ``PHOTO_TOL`` (the solve modulo
+    the gamma ambiguity's factor α), and the raw distances of c, v, log_e."""
+    from hso_tpu_torch.photometric import online_calib as oc
+
+    x, r = np.linspace(oc.INT_LO / 255, oc.INT_HI / 255, 256), np.linspace(0, 1, 65)
+    phi = np.stack([x ** k * (1 - x) for k in range(1, oc.N_RESP + 1)], -1)
+    psi = np.stack([r ** m for m in range(1, oc.N_VIG + 1)], -1)
+    args, kw = call
+    card = {k: v.cpu().numpy().astype(np.float64)
+            for k, v in oc.solve_photometric(*args, **kw).items()}
+    cpu = {k: v.numpy().astype(np.float64)
+           for k, v in oc.solve_photometric(*(a.cpu() for a in args), **kw).items()}
+    alpha, mod_alpha = testing.exposure_gauge(card["log_e"], cpu["log_e"])
+    d = dict(rms_after=abs(float(card["rms_after"] - cpu["rms_after"])),
+             log_e_mod_alpha=mod_alpha, alpha_off_1=abs(alpha - 1.0),
+             log_e=float(np.abs(card["log_e"] - cpu["log_e"]).max()),
+             curve=float(np.abs(phi @ (card["c"] - cpu["c"])).max()),
+             log_v=float(np.abs(psi @ (card["v"] - cpu["v"])).max()),
+             c=float(np.abs(card["c"] - cpu["c"]).max()),
+             v=float(np.abs(card["v"] - cpu["v"]).max()))
+    c, v = (torch.from_numpy(np.asarray(x, np.float32)) for x in (calib.c, calib.v))
+    r2 = calib._r2_img.cpu()
+    img_t = torch.from_numpy(np.ascontiguousarray(img))
+    on_card = oc.correct_image(img_t.to(device), c.to(device), v.to(device), r2.to(device))
+    on_cpu = oc.correct_image(img_t, c, v, r2)
+    d["correct_grey"] = float((on_card.cpu() - on_cpu).abs().max())
+    for k, tol in PHOTO_TOL.items():
+        assert d[k] <= tol, f"photometric card vs CPU: {k} {d[k]} > {tol}: {d}"
+    d["samples"] = list(args[0].shape)
+    d["rms_card"] = [float(card["rms_before"]), float(card["rms_after"])]
+    return d
+
+
+def dataset_phase(device, smi) -> tuple:
+    """The dataset path users call: ``make_synthetic_dataset`` writes the box
+    sequence's first ``N_DATASET`` frames (PNG by the port's codec) to a
+    temporary directory, the port's reader reads them back (the pixels must
+    equal the renders), and the runner's loop (``run_dataset.make_handler``,
+    ``run_frames``, ``save_keyframe_trajectory``) runs them with tracing on:
+    the trajectory file parses, its ATE against ``groundtruth.txt`` is under
+    the gate, no frame fails, the trace CSV has a row a frame and the
+    handler's columns.  Counters set to 0 just before that run, read just
+    after.  A second run gives the same keyframes and positions bit for bit;
+    its last ``N_DATASET_COUNTED`` frames run with tracing off and their host
+    syncs are counted (2 a frame without an event, asserted).  Then
+    ``N_PHOTO`` frames through the synthetic camera's response, vignette and
+    exposure walk with ``photo=1`` (solve every ``PHOTO_SOLVE_EVERY``):
+    calibrated, ``rms_after < rms_before``, no failure, ATE under the gate,
+    the last solve and one corrected frame on the card against the CPU, host
+    syncs a frame counted.  Returns the launches of the first run."""
+    import tempfile
+
+    from hso_tpu_torch import run_dataset
+    from hso_tpu_torch.io.calib import parse_calib
+    from hso_tpu_torch.io.image_reader import ImageReader, write_png
+    from hso_tpu_torch.io.trajectory import save_keyframe_trajectory
+    from hso_tpu_torch.photometric import online_calib
+    from hso_tpu_torch.pipeline.frame_handler import FrameHandler
+    from hso_tpu_torch.tools import make_synthetic_dataset as gen
+    from hso_tpu_torch.utils.evaluate import load_tum
+
+    with tempfile.TemporaryDirectory() as tmp:
+        data, out_dir = os.path.join(tmp, "box"), os.path.join(tmp, "result")
+        t0 = time.perf_counter()
+        poses = gen.write_dataset(data, n=N_DATASET)
+        write_s = time.perf_counter() - t0
+        cam = parse_calib(os.path.join(data, "calib.txt"))
+        times = os.path.join(data, "times.txt")
+        reader = ImageReader(os.path.join(data, "images"), (cam.width, cam.height), times)
+        renders = render_frames(gen.scene(), poses)
+        t0 = time.perf_counter()
+        for k in range(N_DATASET):
+            assert np.array_equal(reader.read_image(k), renders[k]), f"frame {k}: pixels differ"
+        read_ms = (time.perf_counter() - t0) * 1e3 / N_DATASET
+        gt = os.path.join(data, "groundtruth.txt")
+
+        # the runner's loop with tracing on; counters set to 0 just before
+        vo, undistort = run_dataset.make_handler(cam, device, trace_name="box_trace",
+                                                 trace_dir=out_dir)
+        assert undistort is None
+        sync(device)
+        zero_counters()
+        run1 = run_dataset.run_frames(vo, reader, 0, N_DATASET, undistort)
+        sync(device)
+        launches = read_counters()
+        vo.monitor.close()
+        if device.type == "cuda":
+            for name in FRAME_KERNELS:
+                assert launches[name] > 0, f"kernel {name} was never launched by the runner"
+        traj = os.path.join(out_dir, "box.txt")
+        n_kf = save_keyframe_trajectory(vo, traj)
+        st, rows = load_tum(traj)
+        assert len(st) == n_kf == len(vo.kfs.frames) and rows.shape == (n_kf, 7)
+        res, pairs = run_dataset.keyframe_ate(traj, gt)
+        assert res is not None and pairs == n_kf, f"{pairs} keyframes associated of {n_kf}"
+        assert res.rmse < 0.10, f"dataset: ATE RMSE {res.rmse:.4f} m exceeds the 0.10 m gate"
+        assert run1["n_fail"] == 0, [r.status for r in run1["results"]]
+        with open(vo.monitor.path) as fh:
+            csv_rows = [line.rstrip("\n").split(",") for line in fh]
+        columns = [f"timer_{t}" for t in FrameHandler.TRACE_TIMERS] + \
+            [f"log_{n}" for n in FrameHandler.TRACE_LOGS]
+        assert csv_rows[0] == columns and len(csv_rows) == 1 + N_DATASET
+        frame_ids = [float(r[columns.index("log_frame_id")]) for r in csv_rows[1:]]
+        assert frame_ids == list(range(N_DATASET))
+        stage_ms = {c[6:]: 1e3 * statistics.median(float(r[i]) for r in csv_rows[1:])
+                    for i, c in enumerate(columns) if c.startswith("timer_")}
+        kf_ts1, kf_xyz1 = keyframe_record(vo)
+
+        # the second run: the same bits; its last frames without tracing, counted
+        vo2, _ = run_dataset.make_handler(cam, device, trace_name="box_trace_2",
+                                          trace_dir=out_dir)
+        n_head = N_DATASET - N_DATASET_COUNTED
+        run_dataset.run_frames(vo2, reader, 0, n_head)
+        vo2.monitor.close()
+        vo2.monitor = None
+        counted = count_frames(vo2, reader, n_head, N_DATASET)
+        kf_ts2, kf_xyz2 = keyframe_record(vo2)
+        assert kf_ts2 == kf_ts1 and np.array_equal(kf_xyz2, kf_xyz1), \
+            "dataset, second run: keyframes or positions differ"
+        plain = [c for c in counted if c[0] != RESULT_KEYFRAME]
+        assert plain, "every counted frame had a keyframe event"
+        if device.type == "cuda":
+            for _, n_sync, waits, sites in plain:
+                assert n_sync == 2 and waits == 0, \
+                    f"dataset: a frame without a keyframe event waited at {sites}, {waits}"
+
+        # the photometric run: distorted frames, written as 8-bit PNG
+        photo_dir = os.path.join(tmp, "photo")
+        os.makedirs(photo_dir)
+        log_e, r2n = testing.exposure_walk(N_PHOTO), testing.photo_r2n()
+        distorted = [np.round(testing.photo_distort(renders[k].astype(np.float64), log_e[k],
+                                                    r2n)).astype(np.uint8)
+                     for k in range(N_PHOTO)]
+        for k, img in enumerate(distorted):
+            write_png(os.path.join(photo_dir, f"{k:06d}.png"), img)
+        reader_p = ImageReader(photo_dir, (cam.width, cam.height), times)
+        vp, _ = run_dataset.make_handler(cam, device, photo=True)
+        vp.photo.solve_every = vp.photo.min_frames = PHOTO_SOLVE_EVERY
+        rec = Recorder(online_calib.solve_photometric)
+        n_head_p = N_PHOTO - N_PHOTO_COUNTED
+        solved = []
+        with patched([(online_calib, "solve_photometric", rec)]):
+            zero_counters()
+            run_p = run_dataset.run_frames(vp, reader_p, 0, n_head_p)
+            n_solved = len(rec.calls)
+            counted_p = count_frames(vp, reader_p, n_head_p, N_PHOTO,
+                                     on_frame=lambda j: solved.append(len(rec.calls)))
+            sync(device)
+            launches_p = read_counters()
+        solves = np.diff([n_solved] + solved).tolist()      # solves in each counted frame
+        statuses_p = [r.status for r in run_p["results"]] + [c[0] for c in counted_p]
+        # the same distorted frames with photo off: ms a frame on against off
+        v_off, _ = run_dataset.make_handler(cam, device)
+        run_off = run_dataset.run_frames(v_off, reader_p, 0, n_head_p)
+        lo = n_head_p - N_PHOTO_TIMED
+        photo_ms = dict(frames=f"{lo}..{n_head_p - 1}", on=frame_ms_by_kind(run_p, lo),
+                        off=frame_ms_by_kind(run_off, lo))
+        if device.type == "cuda":
+            for (status, n_sync, waits, sites), n_solve in zip(counted_p, solves):
+                if status == RESULT_FRAME and n_solve == 0:
+                    assert n_sync == 3 and waits == 0, \
+                        f"photo=1: a frame without an event or a solve waited at {sites}"
+        assert RESULT_FAILURE not in statuses_p, statuses_p
+        assert vp.photo.calibrated, f"the calibrator did not calibrate in {N_PHOTO} frames"
+        rms_b, rms_a = vp.photo.last_rms
+        assert rms_a < rms_b, f"photometric: rms_after {rms_a} >= rms_before {rms_b}"
+        traj_p = os.path.join(out_dir, "photo.txt")
+        n_kf_p = save_keyframe_trajectory(vp, traj_p)
+        res_p, _ = run_dataset.keyframe_ate(traj_p, gt)
+        assert res_p is not None and res_p.rmse < 0.10, f"photometric run: ATE {res_p}"
+        assert rec.calls, "no solve ran"
+        vs_cpu = photometric_card_vs_cpu(rec.calls[-1], vp.photo, distorted[-1], device)
+
+    doc = dict(card=smi, frames=N_DATASET, write_seconds=write_s, read_ms_per_frame=read_ms,
+               pixels_equal_renders=True,
+               plain_run=dict(photo=0, trace=1, keyframes=n_kf, failures=run1["n_fail"],
+                              ate_rmse_m=res.rmse, ate_max_m=res.max, ate_scale=res.scale,
+                              seconds=run1["seconds"],
+                              ms_per_frame=run1["seconds"] * 1e3 / N_DATASET,
+                              frame_ms=frame_ms_by_kind(run1),
+                              trace_rows=len(csv_rows) - 1, trace_stage_ms_median=stage_ms,
+                              launches=launches),
+               second_run_bitwise_equal=True,
+               host_syncs_trace_off=dict(frames=N_DATASET_COUNTED,
+                                         statuses=[c[0] for c in counted],
+                                         stream_syncs_a_frame=[c[1] for c in counted],
+                                         copy_waits_a_frame=[c[2] for c in counted]),
+               photometric_run=dict(photo=1, frames=N_PHOTO, solve_every=PHOTO_SOLVE_EVERY,
+                                    calibrated=True, solves=len(rec.calls),
+                                    rms_before=rms_b, rms_after=rms_a,
+                                    c=[float(x) for x in vp.photo.c],
+                                    v=[float(x) for x in vp.photo.v],
+                                    keyframes=n_kf_p, failures=0, ate_rmse_m=res_p.rmse,
+                                    seconds=run_p["seconds"],
+                                    ms_per_frame=run_p["seconds"] * 1e3 / n_head_p,
+                                    frame_ms_photo_on_and_off=photo_ms,
+                                    card_vs_cpu=vs_cpu, launches=launches_p,
+                                    counted_statuses=[c[0] for c in counted_p],
+                                    counted_solve_frames=solves,
+                                    stream_syncs_a_frame=[c[1] for c in counted_p],
+                                    copy_waits_a_frame=[c[2] for c in counted_p],
+                                    stream_syncs_by_line=[c[3] for c in counted_p]))
+    emit("dataset", **doc)
+    return launches
+
+
 def kernel_resources() -> dict:
     """Registers, stack, spills and static shared memory of K1 and K2 (each
     window-edge instance), K3 (both instances), K4, K5 and K6, as ``ptxas -v``
@@ -2286,6 +2561,7 @@ def main() -> int:
 
     launches_scan, tallies_scan = scan_phase(cam, cfg, scene, device, smi, results)
     launches_handler, handler_shapes = handler_phase(cam, cfg, scene, device, smi, results)
+    launches_dataset = dataset_phase(device, smi)
 
     def launches_of(key):
         """A results key is ``kernel`` or ``kernel@where``: launches of that
@@ -2317,6 +2593,7 @@ def main() -> int:
             bound_by=r["bound_by"], library_ms=r["library_ms"],
             launches_in=("handler" if key in handler_shapes else "scan"),
             handler_phase_launches=launches_handler[name],
+            dataset_phase_launches=launches_dataset[name],
             **{k: r[k] for k in ("latency_floor_ms", "launch_ms", "bound_work_done_ms")
                if k in r}))
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -19,7 +19,11 @@ activation (:mod:`hso_tpu_torch.pipeline.keyframe`); its entry point is
 :class:`hso_tpu_torch.pipeline.frame_handler.FrameHandler` (``add_image``:
 bootstrap, tracking with its keyframe events and BA, seed rescue,
 relocalization, reset), with checkpoints
-(:mod:`hso_tpu_torch.utils.checkpoint`).
+(:mod:`hso_tpu_torch.utils.checkpoint`), online photometric calibration
+(:mod:`hso_tpu_torch.photometric`) and stage tracing
+(:mod:`hso_tpu_torch.utils.trace`).  And the dataset path: calibration,
+image and trajectory I/O (:mod:`hso_tpu_torch.io`, PNG without OpenCV) and
+the runner ``python -m hso_tpu_torch.run_dataset``.
 """
 
 __version__ = "0.1.0"

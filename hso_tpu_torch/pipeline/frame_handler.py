@@ -26,9 +26,26 @@ starts its copies back (``kf_pack``, the seed harvest, the patch-source
 windows) as non-blocking copies into pinned memory right after the kernels
 that make them, and reads them after the host work that does not need them.
 
+Online photometric calibration (``cfg.photometric_calib``,
+:mod:`hso_tpu_torch.photometric`) linearises each frame on the device before
+the step (no wait; the raw frame passes unchanged until the first solve is
+adopted) and samples the frame's matched points from the raw image after it:
+that needs the per-slot results on the host, one more copy a frame (3 waits
+a frame without an event).  Every ``solve_every`` frames the solve adds one
+copy of its result.  A raw image given as a device tensor is copied to the
+host for the samples.  Images reach the pyramid as float32: a corrected or
+float input is never cast to uint8.
+
+Tracing (``enable_tracing`` or the ``HSO_TRACE`` environment variable, CSV in
+``HSO_TRACE_DIR``): one CSV row a frame of the stage timers and logs in
+``TRACE_TIMERS``/``TRACE_LOGS``.  On the card each timed stage waits for the
+device at its end, so its time includes its device work: a frame without an
+event then waits 3 more times (``host_prep``, ``fused_dispatch``,
+``sync_packed``), and more at the stages of an event.  With tracing off no
+stage waits.
+
 The step and the relocalization tracker are built once per handler.
-``cfg.photometric_calib`` and ``cfg.distributed_ba`` are not ported and
-raise ``NotImplementedError``.
+``cfg.distributed_ba`` is not ported and raises ``NotImplementedError``.
 
 Point success/fail counters accumulate on the device (``acc``, integer
 additions) and are drained into the host table at keyframe events.  A row
@@ -40,7 +57,11 @@ seed rescue (which runs between drains), on the device.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
+import os
+import tempfile
+import time
 
 import numpy as np
 import torch
@@ -72,6 +93,7 @@ from hso_tpu_torch.ops.gatherless import clip_anchor, extract_windows
 from hso_tpu_torch.ops.klt import track_klt
 from hso_tpu_torch.ops.warp import memoize_level_windows_packed
 from hso_tpu_torch.pipeline import ba_glue
+from hso_tpu_torch.photometric import OnlinePhotometricCalibrator
 from hso_tpu_torch.pipeline.fused_step import make_frame_step, pack_light, scatter_rows
 from hso_tpu_torch.track.coarse_tracker import make_coarse_tracker
 from hso_tpu_torch.track.matcher import match_points, select_candidates
@@ -138,8 +160,6 @@ class FrameHandler:
     def __init__(self, cam, cfg: Config | None = None, device="cuda"):
         self.cam = cam
         self.cfg = cfg or Config()
-        if self.cfg.photometric_calib:
-            raise NotImplementedError("online photometric calibration is not ported")
         if self.cfg.distributed_ba:
             raise NotImplementedError("distributed BA is not ported")
         self.device = torch.device(device)
@@ -191,6 +211,49 @@ class FrameHandler:
         self._last_seed_matched = None
         self._step = None
         self._reloc_tracker = None
+        # online photometric calibration (response, vignette)
+        self.photo = None
+        if self.cfg.photometric_calib:
+            self.photo = OnlinePhotometricCalibrator(cam, device=self.device)
+        # per-stage tracing: enable_tracing() or the HSO_TRACE variable
+        self.monitor = None
+        self._fence = torch.empty(0, device=self.device)
+        if os.environ.get("HSO_TRACE"):
+            self.enable_tracing(trace_dir=os.environ.get("HSO_TRACE_DIR",
+                                                         tempfile.gettempdir()))
+
+    #: stage timers and per-frame logs of the trace CSV (the JAX handler's
+    #: columns; the stages the whole step subsumes keep their column at 0)
+    TRACE_TIMERS = (
+        "pyramid_creation", "fused_frame_step", "sparse_img_align",
+        "reproject", "pose_optimizer", "local_ba", "seed_update",
+        "feature_detection", "tot_time",
+        "host_prep", "fused_dispatch", "sync_packed", "writeback",
+        "seed_rescue", "kf_event", "host_tail",
+    )
+    TRACE_LOGS = (
+        "frame_id", "n_matches", "n_inliers", "n_seeds_updated", "n_kfs",
+        "n_points", "is_keyframe", "err_px",
+    )
+
+    def enable_tracing(self, trace_name: str = "hso_tpu_trace",
+                       trace_dir: str | None = None) -> None:
+        from hso_tpu_torch.utils.trace import PerformanceMonitor
+
+        mon = PerformanceMonitor(trace_name, trace_dir)
+        for t in self.TRACE_TIMERS:
+            mon.add_timer(t)
+        for name in self.TRACE_LOGS:
+            mon.add_log(name)
+        mon.init()
+        self.monitor = mon
+
+    def _t(self, name: str):
+        """Stage-timer context, fenced on the handler's device (a no-op when
+        tracing is off)."""
+        if self.monitor is None:
+            return contextlib.nullcontext()
+        return self.monitor.timing(name, fence=self._fence)
 
     # ------------------------------------------------------------------ utils
     def _h2d(self, a, dtype=None) -> torch.Tensor:
@@ -210,9 +273,12 @@ class FrameHandler:
         return torch.full((), x, dtype=dtype, device=self.device)
 
     def _upload_image(self, img) -> torch.Tensor:
+        """A frame on the device: uint8 as it is, any other type as float32."""
         if isinstance(img, torch.Tensor):
-            return img.to(self.device)
-        return self._h2d(img)
+            t = img.to(self.device)
+        else:
+            t = self._h2d(img)
+        return t if t.dtype in (torch.uint8, torch.float32) else t.to(torch.float32)
 
     def _make_frame(self, img_u8, ts: float) -> Frame:
         data = build_frame_pyramids(self._upload_image(img_u8), device=self.device)
@@ -246,6 +312,12 @@ class FrameHandler:
 
     # ------------------------------------------------------------------ stages
     def add_image(self, img_u8, ts: float = 0.0) -> FrameResult:
+        t_start = time.perf_counter()
+        if self.monitor is not None:
+            self.monitor.new_frame()
+        img_in = img_u8
+        if self.photo is not None:
+            img_in = self.photo.correct(img_u8)  # the raw frame until calibrated
         if self.stage == STAGE_DEFAULT:
             # the pyramid is built inside the step
             frame = Frame(
@@ -253,9 +325,10 @@ class FrameHandler:
                 T_f_w=se3np.identity(), data=None,
                 obs=empty_obs(self._n_obs_pad),
             )
-            res = self._process_default(frame, img_u8)
+            res = self._process_default(frame, img_in)
         else:
-            frame = self._make_frame(img_u8, ts)
+            with self._t("pyramid_creation"):
+                frame = self._make_frame(img_in, ts)
             if self.stage == STAGE_FIRST:
                 res = self._process_first(frame)
             elif self.stage == STAGE_SECOND:
@@ -265,6 +338,22 @@ class FrameHandler:
         self.last_frame = frame
         self.frame_count += 1
         self.trajectory.append((ts, frame.T_f_w.copy()))
+        if self.photo is not None and frame.obs is not None:
+            # samples from the RAW image, so the estimate does not compound
+            # with the applied correction
+            self.photo.add_frame_samples(img_u8, frame.obs)
+        if self.monitor is not None:
+            m = self.monitor
+            m.set_timer("tot_time", time.perf_counter() - t_start)
+            m.log("frame_id", self.frame_count - 1)
+            m.log("n_matches", res.n_matches)
+            m.log("n_inliers", res.n_inliers)
+            m.log("n_seeds_updated", res.n_seeds_updated)
+            m.log("n_kfs", len(self.kfs.frames))
+            m.log("n_points", int(self.points.valid.sum()))
+            m.log("is_keyframe", res.status == RESULT_KEYFRAME)
+            m.log("err_px", res.err_px)
+            m.update_finished()
         return res
 
     def _process_first(self, frame: Frame) -> FrameResult:
@@ -392,28 +481,30 @@ class FrameHandler:
     def _dispatch_default(self, frame: Frame, img, seeds_in, I_rel):
         """Enqueue the whole step and attach its device outputs to ``frame``."""
         last = self.last_frame
-        img_dev = frame.data["pyr"][0] if img is None else self._upload_image(img)
-        step = self._fused_step()
-        snap = self._snapshot()
-        prev_obs = self._prev_obs_dev(last)
-        T_prev = getattr(last, "T_dev", None)
-        if T_prev is None:
-            T_prev = self._h2d(last.T_f_w, torch.float32)
-        prev_gm = getattr(last, "grad_mean_dev", None)
-        if prev_gm is None:
-            prev_gm = self._scalar(last.grad_mean)
-        prev_it = getattr(last, "intensity_dev", None)
-        if prev_it is None:
-            prev_it = self._scalar(last.intensity_mean)
-        exp_prev = getattr(last, "exp_dev", None)
-        if exp_prev is None:
-            exp_prev = self._scalar(last.exposure)
-        if self._acc is None:
-            self._acc = torch.zeros((2, self.points.p_max), dtype=torch.int32,
-                                    device=self.device)
+        with self._t("host_prep"):
+            img_dev = frame.data["pyr"][0] if img is None else self._upload_image(img)
+            step = self._fused_step()
+            snap = self._snapshot()
+            prev_obs = self._prev_obs_dev(last)
+            T_prev = getattr(last, "T_dev", None)
+            if T_prev is None:
+                T_prev = self._h2d(last.T_f_w, torch.float32)
+            prev_gm = getattr(last, "grad_mean_dev", None)
+            if prev_gm is None:
+                prev_gm = self._scalar(last.grad_mean)
+            prev_it = getattr(last, "intensity_dev", None)
+            if prev_it is None:
+                prev_it = self._scalar(last.intensity_mean)
+            exp_prev = getattr(last, "exp_dev", None)
+            if exp_prev is None:
+                exp_prev = self._scalar(last.exposure)
+            if self._acc is None:
+                self._acc = torch.zeros((2, self.points.p_max), dtype=torch.int32,
+                                        device=self.device)
 
-        out = step(img_dev, last.data["pyr"], prev_gm, T_prev, prev_obs, prev_it, exp_prev,
-                   I_rel, snap, seeds_in, self._px_error_dev(), self._acc)
+        with self._t("fused_dispatch"):
+            out = step(img_dev, last.data["pyr"], prev_gm, T_prev, prev_obs, prev_it,
+                       exp_prev, I_rel, snap, seeds_in, self._px_error_dev(), self._acc)
 
         self._acc = out["acc"]
         frame.data = out["data"]
@@ -429,7 +520,8 @@ class FrameHandler:
         gate, the sparse-frame seed rescue, the keyframe event and the host
         bookkeeping."""
         cfg = self.cfg
-        packed = out["packed"].cpu().numpy().astype(np.float64)
+        with self._t("sync_packed"):
+            packed = out["packed"].cpu().numpy().astype(np.float64)
 
         frame.T_f_w = se3np.normalize(packed[:12].reshape(3, 4))
         frame.exposure = float(packed[12])
@@ -441,18 +533,22 @@ class FrameHandler:
         err_px = float(packed[15])
 
         synced = False
-        if n_matches < 100:
-            self._writeback_obs(frame, out)
+        if n_matches < 100 or self.photo is not None:
+            # the calibrator samples this frame's matches on the host
+            with self._t("writeback"):
+                self._writeback_obs(frame, out)
             synced = True
+        if n_matches < 100:
             # sparse frame: also match unconverged seeds as TEMPORARY points,
             # then refine the pose over the combined observation set; the
             # rescue runs before the quality gate, which it exists to pass
-            n_temp = self._reproject_seeds(frame, n_matches)
-            if n_temp:
-                n_matches += n_temp
-                n_inliers, err_px = self._pose_refine_host(frame)
-                frame.T_dev = None
-                frame.obs_dev = None
+            with self._t("seed_rescue"):
+                n_temp = self._reproject_seeds(frame, n_matches)
+                if n_temp:
+                    n_matches += n_temp
+                    n_inliers, err_px = self._pose_refine_host(frame)
+                    frame.T_dev = None
+                    frame.obs_dev = None
 
         if n_matches < cfg.quality_min_fts or n_inliers < cfg.quality_min_fts:
             frame.T_f_w = np.asarray(prev_T_host).copy()
@@ -479,29 +575,33 @@ class FrameHandler:
         if is_kf:
             result = RESULT_KEYFRAME
             self.regular_counter = 0
-            # sparse frames get a laxer convergence bar
-            base_th = cfg.seed_converge_sigma2_thresh
-            thresh = base_th / 2.0 if n_inliers <= 70 else base_th
-            # enqueue all keyframe device work before any host read
-            kf_dev = self._kf_map_dispatch(
-                frame, out, distance_mean, 0.5 * max(depth_min, 1e-3), thresh)
-            self._kf_sync(frame, out, already_synced=synced, kp=kf_dev["kf_pack"])
-            kf_idx = self.kfs.add(frame)
-            # CANDIDATE points observed here become UNKNOWN
-            o = frame.obs
-            seen = o["point_id"][o["valid"]]
-            cand = seen[self.points.type[seen] == TYPE_CANDIDATE]
-            self.points.type[cand] = TYPE_UNKNOWN
-            # observed points re-memoize their appearance from this view
-            self._refresh_patch_sources(
-                frame, buf=kf_dev["refresh_buf"],
-                slot_rows=getattr(frame, "_slot_rows", None))
-            self.points.register_obs(frame)
-            # release points that left the field of view
-            self.points.gc_stale(kf_idx)
-            self._run_ba(frame)
-            self._kf_map_finish(kf_dev)
-            self._bump_map_version()
+            with self._t("kf_event"):
+                # sparse frames get a laxer convergence bar
+                base_th = cfg.seed_converge_sigma2_thresh
+                thresh = base_th / 2.0 if n_inliers <= 70 else base_th
+                # enqueue all keyframe device work before any host read
+                with self._t("feature_detection"):
+                    kf_dev = self._kf_map_dispatch(
+                        frame, out, distance_mean, 0.5 * max(depth_min, 1e-3), thresh)
+                self._kf_sync(frame, out, already_synced=synced, kp=kf_dev["kf_pack"])
+                kf_idx = self.kfs.add(frame)
+                # CANDIDATE points observed here become UNKNOWN
+                o = frame.obs
+                seen = o["point_id"][o["valid"]]
+                cand = seen[self.points.type[seen] == TYPE_CANDIDATE]
+                self.points.type[cand] = TYPE_UNKNOWN
+                # observed points re-memoize their appearance from this view
+                self._refresh_patch_sources(
+                    frame, buf=kf_dev["refresh_buf"],
+                    slot_rows=getattr(frame, "_slot_rows", None))
+                self.points.register_obs(frame)
+                # release points that left the field of view
+                self.points.gc_stale(kf_idx)
+                with self._t("local_ba"):
+                    self._run_ba(frame)
+                with self._t("feature_detection"):
+                    self._kf_map_finish(kf_dev)
+                self._bump_map_version()
         else:
             self.regular_counter += 1
 
@@ -1226,6 +1326,12 @@ class FrameHandler:
         self._snap_light = None
         self._dirty_rows = set()
         self._acc = None
+        if self.photo is not None:
+            # a tracking collapse may have been caused by a bad photometric
+            # estimate: restart the calibration from identity with the map
+            old = self.photo
+            self.photo = OnlinePhotometricCalibrator(self.cam, device=self.device)
+            self.photo.solve_every, self.photo.min_frames = old.solve_every, old.min_frames
         self._last_seed_match_px = None
         self._last_seed_matched = None
         self._bump_map_version()

@@ -323,3 +323,43 @@ def ba_problem(n_kf: int = 6, n_pts: int = 120, seed: int = 0, noise_px: float =
     point_valid[:n_pts] = True
     return dict(T_gt=T_gt, idist_gt=idist_gt, obs=obs, T_kf=T_kf, free=free, idist=idist,
                 point_valid=point_valid, n_kf=n_kf, n_pts=n_pts, K=K, P=P)
+
+
+#: the synthetic camera's photometric distortion (a numpy copy of
+#: tests/test_pipeline_photometric.py's): response gamma, vignette
+#: coefficients of log V in R and R² (R = r²/r²_max)
+PHOTO_GAMMA = 0.75
+PHOTO_VIG = (-0.35, -0.15)
+
+
+def photo_r2n(height: int = 480, width: int = 640, cx: float = 320.0,
+              cy: float = 240.0) -> np.ndarray:
+    """R = r² / r²(corner (0, 0)) over the image plane, float64."""
+    yy, xx = np.mgrid[0:height, 0:width]
+    return ((xx - cx) ** 2 + (yy - cy) ** 2) / ((0 - cx) ** 2 + (0 - cy) ** 2)
+
+
+def exposure_walk(n: int, seed: int = 4) -> np.ndarray:
+    """A smooth bounded auto-exposure walk: log e per frame, log e[0] = 0."""
+    rng = np.random.default_rng(seed)
+    log_e = np.cumsum(rng.uniform(-0.06, 0.06, n))
+    return np.clip(log_e - log_e[0], -0.3, 0.3)
+
+
+def photo_distort(img: np.ndarray, log_e: float, r2n: np.ndarray) -> np.ndarray:
+    """What the distorted camera records of a rendered frame (float64):
+    exposure, vignette, clip to [0, 255], then the response curve."""
+    v_fac = np.exp(PHOTO_VIG[0] * r2n + PHOTO_VIG[1] * r2n ** 2)
+    y = np.clip(np.exp(log_e) * v_fac * img, 0.0, 255.0)
+    return 255.0 * (y / 255.0) ** PHOTO_GAMMA
+
+
+def exposure_gauge(log_e: np.ndarray, log_e_ref: np.ndarray) -> tuple:
+    """(alpha, max |log_e - alpha·log_e_ref|), alpha by least squares.
+
+    The photometric model is self-consistent under U^α, e^α, V^α (the gamma
+    ambiguity), and on real samples float32 rounding alone moves a solve
+    along it: two solves of the same samples are compared modulo alpha."""
+    ref = np.asarray(log_e_ref, np.float64)
+    alpha = float(np.dot(np.asarray(log_e, np.float64), ref) / max(np.dot(ref, ref), 1e-30))
+    return alpha, float(np.abs(np.asarray(log_e, np.float64) - alpha * ref).max())

@@ -32,7 +32,12 @@ def test_module_list_is_complete():
                  "hso_tpu_torch.bench", "hso_tpu_torch.tools.reused_rows",
                  "hso_tpu_torch.mapmodel", "hso_tpu_torch.mapmodel.structures",
                  "hso_tpu_torch.math.epipolar_geometry", "hso_tpu_torch.ops.klt",
-                 "hso_tpu_torch.pipeline.ba_glue", "hso_tpu_torch.pipeline.frame_handler"):
+                 "hso_tpu_torch.pipeline.ba_glue", "hso_tpu_torch.pipeline.frame_handler",
+                 "hso_tpu_torch.io", "hso_tpu_torch.io.calib", "hso_tpu_torch.io.image_reader",
+                 "hso_tpu_torch.io.trajectory", "hso_tpu_torch.utils.trace",
+                 "hso_tpu_torch.photometric", "hso_tpu_torch.photometric.online_calib",
+                 "hso_tpu_torch.run_dataset", "hso_tpu_torch.tools.make_synthetic_dataset",
+                 "hso_tpu_torch.tools.boxseq_multirun"):
         assert name in MODULES
 
 
@@ -84,6 +89,19 @@ def test_reused_rows_tool_refuses_to_run_without_a_card():
     assert "--device cpu" in res.stderr
 
 
+def test_boxseq_multirun_refuses_to_run_without_a_card(tmp_path):
+    """The boxseq-2200 bar never falls back to the CPU quietly."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    res = subprocess.run([sys.executable, "-m", "hso_tpu_torch.tools.boxseq_multirun",
+                          f"data={tmp_path}", f"out={tmp_path}/o.json"], cwd=ROOT,
+                         env=dict(os.environ, PYTHONPATH=ROOT), capture_output=True, text=True,
+                         timeout=300)
+    assert res.returncode == 2 and res.stdout == ""
+    assert "device=cpu" in res.stderr
+    assert not os.path.exists(tmp_path / "o.json")
+
+
 def test_fresh_interpreter_imports_everything_without_jax():
     code = (
         "import importlib, sys\n"
@@ -94,6 +112,7 @@ def test_fresh_interpreter_imports_everything_without_jax():
         "       or m == 'hso_tpu' or m.startswith('hso_tpu.')]\n"
         "assert not bad, bad\n"
         "assert 'triton' not in sys.modules\n"
+        "assert 'cv2' not in sys.modules      # the image reader imports it lazily\n"
         "from hso_tpu_torch import _cuda_build\n"
         "assert _cuda_build._lib is None      # nothing was built or loaded\n"
         "print('ok', len(mods))\n")
