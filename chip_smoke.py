@@ -52,6 +52,18 @@ calibration (the last solve and one corrected frame also on the CPU).  The
 ``kernels`` summary adds each kernel's launches in the first run
 (``dataset_phase_launches``).
 
+Then the lag-1 host loop, ``FrameHandler.add_image_pipelined`` and
+``flush``, from the handler phase's resumed state: timed in turns against
+the synchronous loop on the same frames, its second run bit for bit, its host
+syncs counted a call, and after every keyframe event the next dispatched seed
+table checked for the event's new batch (``pipelined_phase_launches``).  Then
+the point-sharded BA (``hso_tpu_torch.ba.distributed``) on the captured BA
+window, with 1 rank over NCCL and 2 ranks over gloo on the card, each held
+to the single-device solver and repeated bit for bit.  The dataset phase also
+reads its frames through the prefetching reader
+(``hso_tpu_torch.io.native_reader``), times the runner with and without it,
+and runs the live viewer (``live=8``).
+
 Phases (one JSON line each): ``device``, ``build`` (with the registers, spills
 and static shared memory of every kernel, and the launch plans of K1/K2, K4 and
 K6 in Python and in C), ``kernels`` (one line per
@@ -60,7 +72,8 @@ the windows in global memory), ``latency`` (the card's own figures for a block
 barrier, a cluster barrier, the reductions and the scalar steps of K3 and K5,
 and the latency floor they give), ``track``, ``frame``, ``fc_frame`` (one frame
 forced through the forward-compositional branch, card against CPU), ``seeds``,
-``scan``, ``handler`` (its ``kernels`` lines first), ``dataset``; then the ``{"kernels": [...]}`` summary, the card line and, last, the
+``scan``, ``handler`` (its ``kernels`` lines first), ``pipelined``,
+``distributed_ba``, ``dataset``; then the ``{"kernels": [...]}`` summary, the card line and, last, the
 ``{"ok": true, "device": {...}}`` line.  Any failed check raises.
 """
 
@@ -69,6 +82,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import ctypes
+import functools
 import io
 import json
 import os
@@ -2040,8 +2054,194 @@ def handler_phase(cam, cfg, scene, device, smi, results):
     return launches_live, shape_launches
 
 
+# ------------------------------------------------------------------ pipelined phase
+N_PIPE = 32              #: frames of each timed loop after the synchronous warm-up
+
+
+def pipelined_run(cam, cfg, frames, z_start, device, pipelined=True, count=False,
+                  on_timed=None):
+    """A handler resumed from the checkpoint (the handler phase's resumed
+    state), warmed with ``add_image`` through three keyframe events (at most
+    ``N_HOST_WARM`` frames), then ``N_PIPE`` frames through the lag-1 loop
+    (``add_image_pipelined``, then ``flush``) or with ``pipelined=False``
+    through ``add_image``, timed as a whole between two device
+    synchronisations.  ``on_timed`` runs just before the timed frames (the
+    counters set to 0).  With ``count`` each lag-1 call runs with its host
+    syncs counted.  Returns the handler, the timed frames' results, their
+    seconds, the warm frames, the seed tables dispatched, the events (index
+    of the next dispatch, batch, the table the event left) and the counts."""
+    from hso_tpu_torch.pipeline.frame_handler import FrameHandler
+
+    h = FrameHandler(cam, cfg, device=device)
+    checkpoint.load_checkpoint(h, BOOT_NPZ, resume_stage="default")
+    k = n_kf = 0
+    while k < N_HOST_WARM and n_kf < 3:
+        n_kf += h.add_image(frames[k], ts=float(z_start + k)).status == RESULT_KEYFRAME
+        k += 1
+    sent, events, counted = [], [], []
+    dispatch, finalize = h._dispatch_default, h._finalize_pipelined
+
+    def rec_dispatch(frame, img, seeds_in, I_rel):
+        sent.append((seeds_in["valid"], seeds_in["batch_id"]))
+        return dispatch(frame, img, seeds_in, I_rel)
+
+    def rec_finalize(frame, out, ts):
+        res = finalize(frame, out, ts)
+        if res.status == RESULT_KEYFRAME:
+            events.append((len(sent), h.batch_counter, h.seeds["valid"], h.seeds["batch_id"]))
+        return res
+
+    h._dispatch_default, h._finalize_pipelined = rec_dispatch, rec_finalize
+    if on_timed is not None:
+        on_timed()
+    sync(device)
+    t0 = time.perf_counter()
+    results = []
+    for j in range(k, k + N_PIPE):
+        if not pipelined:
+            results.append(h.add_image(frames[j], ts=float(z_start + j)))
+            continue
+        call = functools.partial(h.add_image_pipelined, frames[j], ts=float(z_start + j))
+        if count:
+            r, sites, waits = count_host_waits(call)
+            counted.append((None if r is None else r.status, sum(sites.values()), waits, sites))
+        else:
+            r = call()
+        if r is not None:
+            results.append(r)
+    if pipelined:
+        results += h.flush()
+    sync(device)
+    seconds = time.perf_counter() - t0
+    del h._dispatch_default, h._finalize_pipelined
+    return dict(h=h, results=results, seconds=seconds, warm=k, sent=sent, events=events,
+                counted=counted)
+
+
+def pipelined_phase(cam, cfg, scene, device, smi) -> dict:
+    """The lag-1 host loop users call, ``FrameHandler.add_image_pipelined``
+    and ``flush``, at full width from the handler phase's resumed state.
+    Runs in turns: lag-1 (counters set to 0 just before its timed frames,
+    read just after: each of K1–K6 launched), synchronous, lag-1, synchronous,
+    and a third lag-1 run with its host syncs counted a call (2 where the
+    finalised frame had no event: the step's FC/IC choice and the previous
+    frame's ``packed`` copy, asserted).  Gates: one result per frame in order,
+    ≥ 50 inliers a frame, ATE < 0.10 m, the lag-1 runs bit for bit alike, and
+    after every event the next dispatched seed table holds that event's new
+    batch.  Returns the launches of the first lag-1 run."""
+    z_start = int(np.load(BOOT_NPZ)["frame_count"])
+    gt = trajectory(z_start + N_HOST_WARM + N_PIPE)[z_start:]
+    frames = render_frames(scene, gt)
+    runs = {}
+    runs["pipelined_1"] = pipelined_run(cam, cfg, frames, z_start, device,
+                                        on_timed=zero_counters)
+    launches = read_counters()
+    for name in FRAME_KERNELS if device.type == "cuda" else ():
+        assert launches[name] > 0, f"kernel {name} was never launched by the lag-1 loop"
+    runs["sync_1"] = pipelined_run(cam, cfg, frames, z_start, device, pipelined=False)
+    runs["pipelined_2"] = pipelined_run(cam, cfg, frames, z_start, device)
+    runs["sync_2"] = pipelined_run(cam, cfg, frames, z_start, device, pipelined=False)
+    runs["pipelined_counted"] = pipelined_run(cam, cfg, frames, z_start, device, count=True)
+
+    summary = {}
+    first = runs["pipelined_1"]
+    for name, run in runs.items():
+        h, res = run["h"], run["results"]
+        assert len(res) == N_PIPE, f"{name}: {len(res)} results for {N_PIPE} frames"
+        ts = [int(t) for t, _ in h.trajectory]
+        assert ts == list(range(z_start, z_start + run["warm"] + N_PIPE)), f"{name}: order {ts}"
+        assert not any(r.status == RESULT_FAILURE for r in res), [r.status for r in res]
+        min_inl = min(r.n_inliers for r in res)
+        assert min_inl >= 50, f"{name}: a frame kept only {min_inl} inliers"
+        traj = np.stack([T for _, T in h.trajectory])
+        ate = scan_ate(traj, gt[:len(traj)])
+        assert ate < 0.10, f"{name}: ATE RMSE {ate:.4f} m exceeds the 0.10 m gate"
+        if name.startswith("pipelined"):
+            for a, b in zip(first["results"], res):
+                assert (a.status, a.n_matches, a.n_inliers) == (b.status, b.n_matches,
+                                                                b.n_inliers), name
+                assert np.array_equal(a.T_f_w, b.T_f_w), f"{name}: a pose differs"
+            checked = run["checked"] = 0
+            for nxt, batch, valid, batch_id in run["events"]:
+                if nxt >= len(run["sent"]):
+                    continue                     # the last event was finalised by flush
+                want = int((valid & (batch_id == batch)).sum())
+                v, b = run["sent"][nxt]
+                got = int((v & (b == batch)).sum())
+                assert got == want > 0, f"{name}: event batch {batch}: {got} of {want} sent"
+                run["checked"] += 1
+            assert run["checked"] > 0, f"{name}: no event was followed by a dispatch"
+        summary[name] = dict(
+            loop="add_image_pipelined + flush" if name.startswith("pipelined") else "add_image",
+            warm_frames=run["warm"], frames=N_PIPE, seconds=run["seconds"],
+            ms_per_frame=run["seconds"] * 1e3 / N_PIPE,
+            keyframe_events=sum(r.status == RESULT_KEYFRAME for r in res),
+            min_inliers=min_inl, ate_rmse_m=ate,
+            events_followed_by_a_dispatch=run.get("checked"))
+    counted = runs["pipelined_counted"]["counted"]
+    plain = [c for c in counted if c[0] == RESULT_FRAME]
+    assert plain, "no counted call finalised a frame without an event"
+    for _, n_sync, waits, sites in plain if device.type == "cuda" else ():
+        assert n_sync + waits == 2 and waits == 1, \
+            f"lag-1 loop: a call without an event waited at {sites}, {waits} copy waits"
+    emit("pipelined", card=smi, first_frame=z_start, runs=summary, launches=launches,
+         second_run_bitwise_equal=True,
+         host_syncs=dict(calls=len(counted), statuses=[c[0] for c in counted],
+                         stream_syncs_a_call=[c[1] for c in counted],
+                         copy_waits_a_call=[c[2] for c in counted],
+                         stream_syncs_by_line=[c[3] for c in counted if c[0] != RESULT_FRAME]))
+    return launches
+
+
+# ------------------------------------------------------------------ distributed BA phase
+DBA_REPEAT = 4           #: solves a rank makes (the first warms)
+DBA_TIMEOUT_S = 300
+
+
+def distributed_phase(smi) -> None:
+    """``hso_tpu_torch.ba.distributed`` on the card: ``artifacts/bench_ba.npz``
+    (K 16, P 2,048) solved by ``python -m hso_tpu_torch.tools.multiproc_ba``
+    with 1 rank over NCCL and with 2 ranks over gloo, every rank on
+    ``cuda:0``.  Each rank solves ``DBA_REPEAT`` times and requires the same
+    bits, and every rank rank 0's poses; rank 0 holds the result against
+    ``local_bundle_adjustment`` on the card with the JAX tolerances and times
+    both.  Every process started is waited for or killed."""
+    import subprocess
+    import tempfile
+
+    runs = {}
+    for name, world, backend in (("nccl_1_rank", 1, "nccl"), ("gloo_2_ranks", 2, "gloo")):
+        with tempfile.TemporaryDirectory() as tmp:
+            prefix = os.path.join(tmp, "rank0")
+            cmd = [sys.executable, "-m", "hso_tpu_torch.tools.multiproc_ba", "--world",
+                   str(world), "--init", f"file://{tmp}/store", "--backend", backend,
+                   "--device", "cuda", "--repeat", str(DBA_REPEAT), "--out", prefix]
+            procs = [subprocess.Popen(cmd + ["--rank", str(r)], cwd=ROOT,
+                                      env=dict(os.environ, PYTHONPATH=ROOT),
+                                      stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                      text=True) for r in range(world)]
+            logs = []
+            try:
+                for p in procs:
+                    logs.append(p.communicate(timeout=DBA_TIMEOUT_S)[0])
+            finally:
+                for p in procs:
+                    if p.poll() is None:
+                        p.kill()
+                        p.wait()
+            assert all(p.returncode == 0 for p in procs), \
+                f"distributed BA, {name}:\n" + "\n".join(logs)[-3000:]
+            with open(prefix + ".json") as fh:
+                doc = json.load(fh)
+        assert doc["ok"] and doc["bitwise_repeat"] and doc["device"].startswith("cuda")
+        runs[name] = doc
+    emit("distributed_ba", card=smi, runs=runs)
+
+
 N_DATASET = 96           #: frames of the box sequence written, read back and run twice
 N_DATASET_COUNTED = 8    #: frames of the second run whose host syncs are counted (no trace)
+N_LIVE_VIEW = 24         #: frames of the runner's loop with the live viewer
+LIVE_EVERY = 8           #: the viewer's refresh period (live=8)
 N_PHOTO = 48             #: distorted frames of the photometric run
 N_PHOTO_COUNTED = 6      #: frames of the photometric run whose host syncs are counted
 N_PHOTO_TIMED = 18       #: frames before the counted ones timed with photo on and off
@@ -2145,12 +2345,14 @@ def dataset_phase(device, smi) -> tuple:
 
     from hso_tpu_torch import run_dataset
     from hso_tpu_torch.io.calib import parse_calib
-    from hso_tpu_torch.io.image_reader import ImageReader, write_png
+    from hso_tpu_torch.io.image_reader import ImageReader, read_png, write_png
+    from hso_tpu_torch.io.native_reader import NativeImageReader
     from hso_tpu_torch.io.trajectory import save_keyframe_trajectory
     from hso_tpu_torch.photometric import online_calib
     from hso_tpu_torch.pipeline.frame_handler import FrameHandler
     from hso_tpu_torch.tools import make_synthetic_dataset as gen
     from hso_tpu_torch.utils.evaluate import load_tum
+    from hso_tpu_torch.utils.live_view import LiveViewer
 
     with tempfile.TemporaryDirectory() as tmp:
         data, out_dir = os.path.join(tmp, "box"), os.path.join(tmp, "result")
@@ -2165,6 +2367,16 @@ def dataset_phase(device, smi) -> tuple:
         for k in range(N_DATASET):
             assert np.array_equal(reader.read_image(k), renders[k]), f"frame {k}: pixels differ"
         read_ms = (time.perf_counter() - t0) * 1e3 / N_DATASET
+        # the prefetching reader: the same pixels, in index order
+        stream = NativeImageReader(os.path.join(data, "images"), (cam.width, cam.height))
+        t0 = time.perf_counter()
+        stream.start(0, N_DATASET)
+        order = []
+        for k, img in stream:
+            assert np.array_equal(img, renders[k]), f"prefetching reader, frame {k}: pixels differ"
+            order.append(k)
+        assert order == list(range(N_DATASET)) and stream._stream is None
+        stream_ms = (time.perf_counter() - t0) * 1e3 / N_DATASET
         gt = os.path.join(data, "groundtruth.txt")
 
         # the runner's loop with tracing on; counters set to 0 just before
@@ -2217,6 +2429,34 @@ def dataset_phase(device, smi) -> tuple:
                 assert n_sync == 2 and waits == 0, \
                     f"dataset: a frame without a keyframe event waited at {sites}, {waits}"
 
+        # the runner's loop without and with the prefetching reader (no trace):
+        # the same keyframes and positions bit for bit; then live=8
+        v_plain, _ = run_dataset.make_handler(cam, device)
+        run_plain = run_dataset.run_frames(v_plain, reader, 0, N_DATASET)
+        v_on, _ = run_dataset.make_handler(cam, device)
+        run_stream = run_dataset.run_frames(v_on, reader, 0, N_DATASET, stream=stream)
+        for vo_x in (v_plain, v_on):
+            kf_ts_x, kf_xyz_x = keyframe_record(vo_x)
+            assert kf_ts_x == kf_ts1 and np.array_equal(kf_xyz_x, kf_xyz1), \
+                "dataset: the runner without trace or through the reader differs"
+        live_dir = os.path.join(tmp, "live")
+        v_live, _ = run_dataset.make_handler(cam, device)
+        viewer = LiveViewer(out_dir=live_dir, every=LIVE_EVERY)
+        run_dataset.run_frames(v_live, reader, 0, N_LIVE_VIEW, stream=stream, viewer=viewer)
+        track_png = read_png(os.path.join(live_dir, "tracking.png"))
+        map_png = read_png(os.path.join(live_dir, "map.png"))
+        assert track_png.shape == (cam.height, cam.width, 3) and (map_png != 255).any()
+        assert viewer.count == N_LIVE_VIEW and viewer.last_text.startswith(f"frame {N_LIVE_VIEW} ")
+        reader_doc = dict(
+            stream_read_ms_per_frame=stream_ms, pixels_equal_image_reader=True,
+            n_workers=stream.n_workers, depth=stream.depth,
+            runner_without_reader=frame_ms_by_kind(run_plain),
+            runner_with_reader=frame_ms_by_kind(run_stream),
+            seconds_without_reader=run_plain["seconds"], seconds_with_reader=run_stream["seconds"],
+            keyframes_bitwise_equal=True,
+            live=dict(every=LIVE_EVERY, frames=N_LIVE_VIEW, rings=len(viewer.rings),
+                      text=viewer.last_text))
+
         # the photometric run: distorted frames, written as 8-bit PNG
         photo_dir = os.path.join(tmp, "photo")
         os.makedirs(photo_dir)
@@ -2265,7 +2505,7 @@ def dataset_phase(device, smi) -> tuple:
         vs_cpu = photometric_card_vs_cpu(rec.calls[-1], vp.photo, distorted[-1], device)
 
     doc = dict(card=smi, frames=N_DATASET, write_seconds=write_s, read_ms_per_frame=read_ms,
-               pixels_equal_renders=True,
+               pixels_equal_renders=True, prefetching_reader=reader_doc,
                plain_run=dict(photo=0, trace=1, keyframes=n_kf, failures=run1["n_fail"],
                               ate_rmse_m=res.rmse, ate_max_m=res.max, ate_scale=res.scale,
                               seconds=run1["seconds"],
@@ -2561,6 +2801,8 @@ def main() -> int:
 
     launches_scan, tallies_scan = scan_phase(cam, cfg, scene, device, smi, results)
     launches_handler, handler_shapes = handler_phase(cam, cfg, scene, device, smi, results)
+    launches_pipelined = pipelined_phase(cam, cfg, scene, device, smi)
+    distributed_phase(smi)
     launches_dataset = dataset_phase(device, smi)
 
     def launches_of(key):
@@ -2593,6 +2835,7 @@ def main() -> int:
             bound_by=r["bound_by"], library_ms=r["library_ms"],
             launches_in=("handler" if key in handler_shapes else "scan"),
             handler_phase_launches=launches_handler[name],
+            pipelined_phase_launches=launches_pipelined[name],
             dataset_phase_launches=launches_dataset[name],
             **{k: r[k] for k in ("latency_floor_ms", "launch_ms", "bound_work_done_ms")
                if k in r}))

@@ -22,8 +22,13 @@ relocalization, reset), with checkpoints
 (:mod:`hso_tpu_torch.utils.checkpoint`), online photometric calibration
 (:mod:`hso_tpu_torch.photometric`) and stage tracing
 (:mod:`hso_tpu_torch.utils.trace`).  And the dataset path: calibration,
-image and trajectory I/O (:mod:`hso_tpu_torch.io`, PNG without OpenCV) and
-the runner ``python -m hso_tpu_torch.run_dataset``.
+image and trajectory I/O (:mod:`hso_tpu_torch.io`, PNG without OpenCV, a
+prefetching reader), the live viewer (:mod:`hso_tpu_torch.utils.live_view`)
+and the runner ``python -m hso_tpu_torch.run_dataset``.  And the rest: the
+lag-1 host loop (``FrameHandler.add_image_pipelined``/``flush``) and the
+point-sharded BA over ``torch.distributed``
+(:mod:`hso_tpu_torch.ba.distributed`).  Every module of the JAX package has
+its counterpart here.
 """
 
 __version__ = "0.1.0"

@@ -27,8 +27,6 @@ import struct
 import zlib
 
 import numpy as np
-import torch
-import torch.nn.functional as F
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 #: (colour type, bit depth) → samples a pixel, for the layouts this codec reads
@@ -174,6 +172,9 @@ def _cv2():
 def resize_bilinear(img: np.ndarray, size_wh: tuple[int, int]) -> np.ndarray:
     """Resize 8-bit grey to ``size_wh`` with half-pixel-centre bilinear
     sampling (the sampling grid of OpenCV's ``INTER_LINEAR``), rounded."""
+    import torch                      # here: a reader worker decodes PNG without torch
+    import torch.nn.functional as F
+
     t = torch.from_numpy(np.ascontiguousarray(img)).to(torch.float32)[None, None]
     out = F.interpolate(t, size=(size_wh[1], size_wh[0]), mode="bilinear",
                         align_corners=False, antialias=False)
@@ -195,6 +196,25 @@ def read_grey(path: str) -> np.ndarray:
     return img
 
 
+def read_resized(path: str, size_wh: tuple[int, int]) -> np.ndarray:
+    """One image file as (H, W) uint8 grey at ``size_wh``."""
+    img = read_grey(path)
+    if (img.shape[1], img.shape[0]) != tuple(size_wh):
+        cv2 = _cv2()
+        if cv2 is None:
+            img = resize_bilinear(img, size_wh)
+        else:
+            img = cv2.resize(img, tuple(size_wh), interpolation=cv2.INTER_LINEAR)
+    return img
+
+
+def list_images(image_folder: str) -> list[str]:
+    """The folder's .png/.jpg/.jpeg/.bmp files, sorted by name."""
+    exts = (".png", ".jpg", ".jpeg", ".bmp")
+    return sorted(os.path.join(image_folder, f) for f in os.listdir(image_folder)
+                  if f.lower().endswith(exts))
+
+
 def _parse_stamp_line(line: str) -> str | None:
     tok = line.split()
     if not tok:
@@ -209,12 +229,7 @@ def _parse_stamp_line(line: str) -> str | None:
 class ImageReader:
     def __init__(self, image_folder: str, size_wh: tuple[int, int],
                  time_file: str | None = None):
-        exts = (".png", ".jpg", ".jpeg", ".bmp")
-        self.files = sorted(
-            os.path.join(image_folder, f)
-            for f in os.listdir(image_folder)
-            if f.lower().endswith(exts)
-        )
+        self.files = list_images(image_folder)
         self.size_wh = tuple(size_wh)
         self.stamps: list[str] = []
         if time_file and time_file != "None":
@@ -229,14 +244,7 @@ class ImageReader:
         return len(self.files)
 
     def read_image(self, i: int) -> np.ndarray:
-        img = read_grey(self.files[i])
-        if (img.shape[1], img.shape[0]) != self.size_wh:
-            cv2 = _cv2()
-            if cv2 is None:
-                img = resize_bilinear(img, self.size_wh)
-            else:
-                img = cv2.resize(img, self.size_wh, interpolation=cv2.INTER_LINEAR)
-        return img
+        return read_resized(self.files[i], self.size_wh)
 
     def read_stamp(self, i: int) -> str:
         return self.stamps[i] if self.stamp_valid else str(i)

@@ -171,14 +171,14 @@ class OnlinePhotometricCalibrator:
     """Host-side orchestration: sample tracked-point intensities from raw
     frames, run :func:`solve_photometric` over a sliding window every
     ``solve_every`` frames, and linearise incoming images with the current
-    estimate on ``device``.
+    estimate on ``device`` (the card unless the caller asks for the CPU).
 
     Observations come from RAW images, so the estimate does not compound
     with the applied correction.
     """
 
     def __init__(self, cam, window: int = 48, solve_every: int = 16,
-                 min_frames: int = 12, max_points: int = 384, device="cpu"):
+                 min_frames: int = 12, max_points: int = 384, device="cuda"):
         self.cam = cam
         self.device = torch.device(device)
         self.window = window

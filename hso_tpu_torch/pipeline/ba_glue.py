@@ -1,7 +1,9 @@
 """Covisibility window selection, BA problem assembly and write-back.
 
 Host-side glue between the map model and the device BA solver
-(:func:`hso_tpu_torch.ba.local_ba.local_bundle_adjustment`):
+(:func:`hso_tpu_torch.ba.local_ba.local_bundle_adjustment`, or with
+``cfg.distributed_ba`` the point-sharded
+:func:`hso_tpu_torch.ba.distributed.distributed_bundle_adjustment`):
 
   * core = keyframes sharing ≥ threshold points with the centre keyframe (top
     ``core_n_kfs``), plus the last keyframe and the centre;
@@ -24,6 +26,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from hso_tpu_torch.ba.distributed import distributed_bundle_adjustment
 from hso_tpu_torch.ba.local_ba import local_bundle_adjustment
 from hso_tpu_torch.math import se3np
 
@@ -62,8 +65,6 @@ def run_local_ba(handler, center) -> dict | None:
     ``handler.device`` and write the result back into the host map.  Returns
     the problem's counts and chi2, or None when the window is too small."""
     cfg = handler.cfg
-    if cfg.distributed_ba:
-        raise NotImplementedError("distributed BA is not ported")
     K = cfg.n_kfs_window
     P = cfg.n_points_ba_max
 
@@ -183,7 +184,12 @@ def run_local_ba(handler, center) -> dict | None:
               strip_px=float(cfg.loba_thresh))
     if solve_capture is not None:
         solve_capture(args_c, kw)
-    out = local_bundle_adjustment(*args_c, **kw)
+    if cfg.distributed_ba:
+        # point-sharded over the ranks of the default process group (one
+        # rank without a group); every rank gets the whole result
+        out = distributed_bundle_adjustment(*args_c, n_devices=cfg.ba_n_devices, **kw)
+    else:
+        out = local_bundle_adjustment(*args_c, **kw)
 
     # ---- write-back (one device→host copy for all solver outputs) ----
     f32 = torch.float32

@@ -45,13 +45,30 @@ event then waits 3 more times (``host_prep``, ``fused_dispatch``,
 stage waits.
 
 The step and the relocalization tracker are built once per handler.
-``cfg.distributed_ba`` is not ported and raises ``NotImplementedError``.
+``cfg.distributed_ba`` routes the windowed BA through the point-sharded
+solver of :mod:`hso_tpu_torch.ba.distributed` (one shard without a process
+group).
 
 Point success/fail counters accumulate on the device (``acc``, integer
-additions) and are drained into the host table at keyframe events.  A row
-that the point table hands out starts with its counters at 0, whichever path
-(bootstrap, seed rescue, seed activation) takes it, on the host and, for the
-seed rescue (which runs between drains), on the device.
+additions) and are drained into the host table at keyframe events: the host
+adds the drained frame's counts, the device subtracts the same counts, so
+counts of a frame dispatched after the drained one stay.  A row that the
+point table hands out starts with its counters at 0, whichever path
+(bootstrap, seed rescue, seed activation) takes it, on the host and on the
+device; the drain of a frame dispatched before the row was handed out leaves
+the row out.
+
+The lag-1 loop ``add_image_pipelined``/``flush`` dispatches frame k's step,
+then finalises frame k−1 (its ``packed`` copy started at its dispatch, as a
+non-blocking copy into pinned memory), so the host work of frame k−1 overlaps
+frame k's device work.  Keyframe map updates land one frame late and the
+motion prior is the last finalised relative motion.  The seed-table edits of
+finalising frame k−1 (the harvest and prunes, the new batch and its backfill,
+the seed rescue's links) are grafted onto frame k's swept table on the device:
+the rows they changed replace frame k's rows, the other rows keep frame k's
+sweep.  A frame that fails discards the one speculative dispatch and goes
+through the synchronous path; any stage but DEFAULT hands over to
+``add_image``.
 """
 
 from __future__ import annotations
@@ -136,6 +153,36 @@ def _fetch(*tensors) -> list:
     return out
 
 
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    """A tensor's bit patterns (floats as integers of their width, so NaN
+    rows compare equal to themselves)."""
+    if t.dtype == torch.float32:
+        return t.view(torch.int32)
+    if t.dtype == torch.float64:
+        return t.view(torch.int64)
+    return t
+
+
+def graft_seed_rows(after: dict, base: dict, branch: dict) -> dict:
+    """The seed table ``branch`` with every slot that ``after`` changed
+    against ``base`` (any member, bitwise) taken from ``after``, on the
+    device.  The lag-1 loop's graft: ``base`` is the table frame k swept from,
+    ``branch`` frame k's swept table, ``after`` what finalising frame k−1 made
+    of ``base`` (harvest, prunes, the new batch and its backfill, the seed
+    rescue's links).  A harvested slot stays harvested; a new slot is one
+    frame k left as it was, so it holds the new batch."""
+    changed = None
+    for k, a in after.items():
+        if a is base[k]:
+            continue
+        d = (_bits(a) != _bits(base[k])).reshape(a.shape[0], -1).any(dim=1)
+        changed = d if changed is None else changed | d
+    if changed is None:
+        return branch
+    return {k: torch.where(changed.reshape((-1,) + (1,) * (v.dim() - 1)), after[k], v)
+            for k, v in branch.items()}
+
+
 class _Pending:
     """A device→host copy in flight: non-blocking into pinned memory on the
     card (an event marks its end), a plain copy on the CPU."""
@@ -160,8 +207,6 @@ class FrameHandler:
     def __init__(self, cam, cfg: Config | None = None, device="cuda"):
         self.cam = cam
         self.cfg = cfg or Config()
-        if self.cfg.distributed_ba:
-            raise NotImplementedError("distributed BA is not ported")
         self.device = torch.device(device)
         self.points = PointTable(self.cfg.n_points_ba_max * 2)
         self.kfs = KeyframeWindow(k_all_max=self.cfg.max_n_kfs, recent=SEED_RING)
@@ -203,6 +248,9 @@ class FrameHandler:
         # device point success/fail counters (2, p_max), drained at keyframe
         # events (_apply_lifecycle)
         self._acc = None
+        # frames dispatched and not yet finalised, each with the point rows
+        # whose device counters restarted since its dispatch (acc_reset)
+        self._acc_open: list[Frame] = []
         self._px_err_dev = None
         # rows whose patch/species data changed since the last heavy snapshot
         # upload; every writer of PointTable.patch_*/species marks its rows
@@ -211,6 +259,13 @@ class FrameHandler:
         self._last_seed_matched = None
         self._step = None
         self._reloc_tracker = None
+        # the lag-1 loop: the dispatched frame not yet finalised (frame, step
+        # output, timestamp), the seed table the next dispatch sweeps, the pose
+        # of the last finalised frame, and the results not yet returned
+        self._pending = None
+        self._seeds_spec = None
+        self._last_T_host = None
+        self._due: collections.deque = collections.deque()
         # online photometric calibration (response, vignette)
         self.photo = None
         if self.cfg.photometric_calib:
@@ -338,6 +393,7 @@ class FrameHandler:
         self.last_frame = frame
         self.frame_count += 1
         self.trajectory.append((ts, frame.T_f_w.copy()))
+        self._last_T_host = None       # the lag-1 loop reads last_frame's pose next
         if self.photo is not None and frame.obs is not None:
             # samples from the RAW image, so the estimate does not compound
             # with the applied correction
@@ -354,6 +410,90 @@ class FrameHandler:
             m.log("is_keyframe", res.status == RESULT_KEYFRAME)
             m.log("err_px", res.err_px)
             m.update_finished()
+        return res
+
+    # ---------------------------------------------------------- pipelined
+    def add_image_pipelined(self, img_u8, ts: float = 0.0) -> FrameResult | None:
+        """Lag-1 ``add_image``: enqueue this frame's step, then finalise the
+        previous frame while this one runs on the device.
+
+        Keyframe map updates land one frame late (this frame was dispatched
+        against the map before the previous frame's event), and the motion
+        prior is the last finalised relative motion.  The previous frame's
+        seed-table edits are grafted onto this frame's swept table
+        (:func:`graft_seed_rows`).  A failed frame discards this frame's
+        dispatch and reprocesses the image through ``add_image``
+        (relocalization); a stage other than DEFAULT hands over to
+        ``add_image``.  Returns the oldest result not yet returned (None while
+        the pipeline fills); :meth:`flush` returns the rest.  Refused with
+        ``photometric_calib``: its per-frame sampling is synchronous."""
+        if self.photo is not None:
+            raise ValueError("add_image_pipelined requires photometric_calib=False")
+        if self.stage != STAGE_DEFAULT:
+            self._finalize_pending()
+            self._due.append(self.add_image(img_u8, ts))
+            return self._due.popleft()
+
+        if self.monitor is not None:
+            self.monitor.new_frame()
+        t_start = time.perf_counter()
+        if self._last_T_host is None:
+            self._last_T_host = self.last_frame.T_f_w.copy()
+        frame = Frame(frame_id=self.frame_count, timestamp=ts, T_f_w=se3np.identity(),
+                      data=None, obs=empty_obs(self._n_obs_pad))
+        seeds_in = self._seeds_spec if self._seeds_spec is not None else self.seeds
+        acc_before = self._acc
+        out = self._dispatch_default(frame, img_u8, seeds_in,
+                                     self._h2d(self.motion_model, torch.float32))
+        frame.packed_copy = _Pending(out["packed"])     # waited on at finalise
+
+        if self._pending is not None:
+            pf, pout, pts_ = self._pending
+            self._pending = None
+            self._due.append(self._finalize_pipelined(pf, pout, pts_))
+            if self.stage != STAGE_DEFAULT:
+                # the speculative dispatch chained off a failed frame: discard
+                # it (the counters as before it, less the rows restarted
+                # since) and reprocess this image synchronously
+                self._acc_open.remove(frame)
+                self._acc = acc_before
+                self._zero_acc_rows(frame.acc_reset, record=False)
+                self._seeds_spec = None
+                self._due.append(self.add_image(img_u8, ts))
+                return self._due.popleft()
+            if self.seeds is not pout["seeds"]:
+                # finalising edited the table frame k swept from: carry the
+                # rows it changed into frame k's table
+                out["seeds"] = graft_seed_rows(self.seeds, pout["seeds"], out["seeds"])
+
+        self._pending = (frame, out, ts)
+        self._seeds_spec = out["seeds"]
+        self.last_frame = frame
+        self.frame_count += 1
+        if self.monitor is not None:
+            self.monitor.set_timer("tot_time", time.perf_counter() - t_start)
+            self.monitor.update_finished()
+        return self._due.popleft() if self._due else None
+
+    def flush(self) -> list[FrameResult]:
+        """Finalise the pending frame; every result not yet returned, oldest
+        first."""
+        self._finalize_pending()
+        out = list(self._due)
+        self._due.clear()
+        return out
+
+    def _finalize_pending(self) -> None:
+        if self._pending is not None:
+            pf, pout, pts_ = self._pending
+            self._pending = None
+            self._due.append(self._finalize_pipelined(pf, pout, pts_))
+        self._seeds_spec = None
+        self._last_T_host = None
+
+    def _finalize_pipelined(self, frame: Frame, out, ts: float) -> FrameResult:
+        res = self._finalize_default(frame, out, self._last_T_host)
+        self.trajectory.append((ts, frame.T_f_w.copy()))
         return res
 
     def _process_first(self, frame: Frame) -> FrameResult:
@@ -507,6 +647,8 @@ class FrameHandler:
                        exp_prev, I_rel, snap, seeds_in, self._px_error_dev(), self._acc)
 
         self._acc = out["acc"]
+        frame.acc_reset = []
+        self._acc_open.append(frame)
         frame.data = out["data"]
         frame.grad_mean_dev = out["data"]["grad_mean"]
         frame.intensity_dev = out["data"]["intensity_mean"]
@@ -516,12 +658,20 @@ class FrameHandler:
         return out
 
     def _finalize_default(self, frame: Frame, out, prev_T_host) -> FrameResult:
-        """Consume the step's results: the one ``packed`` copy, the quality
-        gate, the sparse-frame seed rescue, the keyframe event and the host
-        bookkeeping."""
+        """Consume the step's results: the one ``packed`` copy (started at the
+        dispatch in the lag-1 loop), the quality gate, the sparse-frame seed
+        rescue, the keyframe event and the host bookkeeping."""
+        try:
+            return self._finalize_frame(frame, out, prev_T_host)
+        finally:
+            self._acc_open.remove(frame)
+
+    def _finalize_frame(self, frame: Frame, out, prev_T_host) -> FrameResult:
         cfg = self.cfg
         with self._t("sync_packed"):
-            packed = out["packed"].cpu().numpy().astype(np.float64)
+            copy = getattr(frame, "packed_copy", None)
+            packed = (copy.numpy() if copy is not None
+                      else out["packed"].cpu().numpy()).astype(np.float64)
 
         frame.T_f_w = se3np.normalize(packed[:12].reshape(3, 4))
         frame.exposure = float(packed[12])
@@ -552,6 +702,7 @@ class FrameHandler:
 
         if n_matches < cfg.quality_min_fts or n_inliers < cfg.quality_min_fts:
             frame.T_f_w = np.asarray(prev_T_host).copy()
+            self._last_T_host = frame.T_f_w
             self.stage = STAGE_RELOC
             return FrameResult(RESULT_FAILURE, frame.T_f_w, n_matches, n_inliers)
         self.tracking_bad = (
@@ -564,8 +715,13 @@ class FrameHandler:
         depth_min = float(packed[17]) if np.isfinite(packed[17]) else 0.1
         distance_mean = float(packed[18]) if np.isfinite(packed[18]) else 1.0
 
-        # the sweep's seeds are taken only on frames that did not fail
+        # the sweep's seeds are taken only on frames that did not fail, with
+        # the seed rescue's links to its TEMPORARY points
         self.seeds = out["seeds"]
+        links = getattr(frame, "temp_links", None)
+        if links is not None:
+            self.seeds = dict(self.seeds)
+            self.seeds["temp_point"] = self.seeds["temp_point"].index_put((links[0],), links[1])
         n_upd = int(packed[19])
 
         # ---- keyframe decision (the frame right after the bootstrap is one)
@@ -607,6 +763,7 @@ class FrameHandler:
 
         self.motion_model = se3np.mul(
             frame.T_f_w, se3np.inv(np.asarray(prev_T_host, np.float64)))
+        self._last_T_host = frame.T_f_w
         self.pre_frames.append(frame)
         return FrameResult(result, frame.T_f_w, n_matches, n_inliers, n_upd, err_px)
 
@@ -624,7 +781,10 @@ class FrameHandler:
         self._last_seed_matched = kp[off + 2 * S: off + 3 * S] > 0.5
         if not already_synced:
             self._writeback_obs(frame, out, sp=sp)
-        self._apply_lifecycle(frame, acc=acc)
+        reset = (np.concatenate(frame.acc_reset) if getattr(frame, "acc_reset", None)
+                 else np.zeros(0, np.int64))
+        acc[:, reset] = 0
+        self._apply_lifecycle(frame, acc, out["acc"], reset)
 
     def _writeback_obs(self, frame: Frame, out, sp=None) -> None:
         """Fill the frame's host observation table with the step's kept
@@ -645,14 +805,15 @@ class FrameHandler:
         o["grad"][rows] = sp[w, 5:7]
         o["point_id"][rows] = sp[w, 9].astype(np.int32)
 
-    def _apply_lifecycle(self, frame: Frame | None = None, acc=None) -> None:
-        """Drain the device success/fail counters into the host point table and
+    def _apply_lifecycle(self, frame: Frame, acc: np.ndarray, drained: torch.Tensor,
+                         reset: np.ndarray) -> None:
+        """Drain a frame's success/fail counters into the host point table and
         apply the lifecycle rules: TEMPORARY dies after >3 failures, UNKNOWN
-        after >15; UNKNOWN with >10 successes becomes GOOD."""
-        if self._acc is None:
-            return
-        if acc is None:
-            acc = self._acc.cpu().numpy().astype(np.int64)
+        after >15; UNKNOWN with >10 successes becomes GOOD.  ``acc`` is the
+        host copy of the frame's counters ``drained`` (the step's ``acc``)
+        with the rows ``reset`` since its dispatch set to 0; the device
+        counters lose the same counts, so those of a frame dispatched after
+        this one stay (the lag-1 loop)."""
         pts = self.points
         if acc.any():
             pts.n_succ += acc[0]
@@ -666,7 +827,9 @@ class FrameHandler:
                                  & (pts.type == TYPE_UNKNOWN)
                                  & (pts.n_succ > 10))[0]
             pts.type[promote] = TYPE_GOOD
-            self._acc = torch.zeros((2, pts.p_max), dtype=torch.int32, device=self.device)
+            if len(reset):
+                drained = drained.index_fill(1, self._h2d(reset), 0)
+            self._acc = self._acc - drained
             # scrub obs rows of the current frame that reference points the
             # drain just released (not yet in the inverted index)
             if frame is not None and frame.obs is not None:
@@ -997,10 +1160,12 @@ class FrameHandler:
         pts.init_patch_from_host(pidx)
         self._mark_dirty(pidx)
         # link seed → temporary point (a new table: the step's last output
-        # may still hold the old one)
+        # may still hold the old one); the frame keeps the links for the
+        # table its step swept, which replaces this one if the frame passes
+        links = (self._h2d(s_ids.astype(np.int64)), self._h2d(pidx))
+        frame.temp_links = links
         self.seeds = dict(self.seeds)
-        self.seeds["temp_point"] = self.seeds["temp_point"].index_put(
-            (self._h2d(s_ids.astype(np.int64)),), self._h2d(pidx))
+        self.seeds["temp_point"] = self.seeds["temp_point"].index_put((links[0],), links[1])
         # observations
         o = frame.obs
         free = np.where(~o["valid"])[0][: m]
@@ -1015,15 +1180,27 @@ class FrameHandler:
         return len(free)
 
     def _alloc_between_drains(self, n: int) -> np.ndarray:
-        """``points.alloc`` for a path that runs between two drains of the
-        device counters (the seed rescue): the rows' device counters restart
-        at 0 too.  A row released without a drain (by ``_reproject`` on the
-        relocalization path) may still hold device counts of the point that
-        had it, which the next drain would add to the new point."""
+        """``points.alloc`` with the rows' device counters restarted at 0 too
+        (the seed rescue, the seed activation).  A row may still hold device
+        counts of the point that had it: released without a drain (by
+        ``_reproject`` on the relocalization path), or released at an event
+        while the lag-1 loop's next frame, dispatched before it, matched the
+        old point there.  The next drain would add them to the new point."""
         idx = self.points.alloc(n)
-        if self._acc is not None and len(idx):
-            self._acc = self._acc.index_fill(1, self._h2d(idx.astype(np.int64)), 0)
+        self._zero_acc_rows([idx])
         return idx
+
+    def _zero_acc_rows(self, rows: list, record: bool = True) -> None:
+        """Restart the device counters of ``rows`` (a list of index arrays) at
+        0.  Each frame whose step is in flight records them: its drain leaves
+        them out, since its counts there are of the point the row held."""
+        idx = np.concatenate(rows).astype(np.int64) if rows else np.zeros(0, np.int64)
+        if self._acc is None or not len(idx):
+            return
+        self._acc = self._acc.index_fill(1, self._h2d(idx), 0)
+        if record:
+            for f in self._acc_open:
+                f.acc_reset.append(idx)
 
     def _refresh_patch_sources(self, frame: Frame, buf=None, slot_rows=None) -> None:
         """Re-memoize the appearance window of every point observed in this
@@ -1195,7 +1372,7 @@ class FrameHandler:
                 promoted += 1
         w = np.array([s for s in w_all if temp_ids[s] < 0], dtype=int)
 
-        idx = self.points.alloc(len(w))
+        idx = self._alloc_between_drains(len(w))
         m = len(idx)
         if m == 0:
             return promoted

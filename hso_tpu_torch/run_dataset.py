@@ -4,7 +4,8 @@ trajectory out (the port's counterpart of the JAX package's
 
     python -m hso_tpu_torch.run_dataset image=<dir> calib=<file> [times=<file>]
         [start=<n>] [end=<n>] [name=<result name>] [cpu=1] [photo=1]
-        [trace=1] [gt=<file>] [max_dt=<s>] [ate_json=<file>]
+        [trace=1] [gt=<file>] [max_dt=<s>] [ate_json=<file>] [live=<N>]
+        [no_native=1]
 
 Runs on the GPU; ``cpu=1`` runs on the CPU instead, and without a GPU the
 runner exits 2 unless ``cpu=1`` is given.  Writes ``result/<name>.txt``
@@ -15,8 +16,11 @@ online photometric calibration (response, vignette, exposure).
 ``gt=<file>`` (TUM or EuRoC csv) prints the scale-aligned ATE of the keyframe
 trajectory after the run; ``ate_json=<file>`` also writes it as JSON.
 Calibrations that ask for whole-image undistortion are rectified on the
-device (``undistort_remap`` and ``remap_bilinear``).  ``live=`` (the JAX
-runner's viewer) is not ported and raises ``NotImplementedError``.
+device (``undistort_remap`` and ``remap_bilinear``).  Frames are read by the
+prefetching reader (:mod:`hso_tpu_torch.io.native_reader`: worker processes,
+the same pixels as ``ImageReader``); ``no_native=1`` reads them in the loop
+instead.  ``live=N`` refreshes ``result/live/{tracking,map}.png`` every N
+frames (:mod:`hso_tpu_torch.utils.live_view`).
 """
 
 from __future__ import annotations
@@ -35,10 +39,12 @@ from hso_tpu_torch.config import Config
 from hso_tpu_torch.image.pyramid import remap_bilinear
 from hso_tpu_torch.io.calib import parse_calib
 from hso_tpu_torch.io.image_reader import ImageReader
+from hso_tpu_torch.io.native_reader import NativeImageReader
 from hso_tpu_torch.io.trajectory import save_keyframe_trajectory
 from hso_tpu_torch.pipeline.frame_handler import RESULT_FAILURE, FrameHandler
 from hso_tpu_torch.pipeline.scan import pin_float32_matmul
 from hso_tpu_torch.utils.evaluate import associate, ate, load_any, load_tum
+from hso_tpu_torch.utils.live_view import LiveViewer
 
 USAGE = __doc__.split("\n\n")[1]
 
@@ -72,19 +78,34 @@ def make_handler(cam, device, photo: bool = False, trace_name: str | None = None
     return vo, undistort
 
 
-def run_frames(vo, reader, start: int, end: int, undistort=None, log=None) -> dict:
+def run_frames(vo, reader, start: int, end: int, undistort=None, log=None, stream=None,
+               viewer=None) -> dict:
     """``vo.add_image`` on frames ``start..end-1`` of ``reader``, each keyframe
-    stamped with its line of the times file.  Returns the failures, the
-    per-frame results, the ms of each frame and the seconds of the run on
-    the host clock (image reading included, as the JAX runner counts it)."""
+    stamped with its line of the times file.  With ``stream`` (a
+    :class:`~hso_tpu_torch.io.native_reader.NativeImageReader` over the same
+    folder) the frames come from its prefetching workers; ``viewer`` (a
+    :class:`~hso_tpu_torch.utils.live_view.LiveViewer`) sees every frame.
+    Returns the failures, the per-frame results, the ms of each frame and the
+    seconds of the run on the host clock (image reading included, as the JAX
+    runner counts it)."""
     t0 = time.time()
     n_fail, results, frame_ms = 0, [], []
+    frames = None
+    if stream is not None:
+        stream.start(start, end)
+        frames = iter(stream)
     for i in range(start, end):
         t_frame = time.perf_counter()
-        img = reader.read_image(i)
+        if frames is not None:
+            j, img = next(frames)
+            assert j == i, (j, i)
+        else:
+            img = reader.read_image(i)
         if undistort is not None:
             img = undistort(img)
         res = vo.add_image(img, ts=float(i))
+        if viewer is not None:
+            viewer.update(vo, img)
         if vo.last_frame is not None:
             vo.last_frame.stamp_str = reader.read_stamp(i)
         n_fail += res.status == RESULT_FAILURE
@@ -114,8 +135,6 @@ def main(argv=None) -> int:
     if "image" not in args or "calib" not in args:
         print(USAGE)
         return 1
-    if args.get("live"):
-        raise NotImplementedError("live=: the live viewer is not ported")
     cpu = bool(int(args.get("cpu", "0")))
     if not cpu and not torch.cuda.is_available():
         print("run_dataset: no CUDA device (torch.cuda.is_available() is False); "
@@ -132,7 +151,18 @@ def main(argv=None) -> int:
     trace = bool(int(args.get("trace", "0")))
     vo, undistort = make_handler(cam, device, photo=bool(int(args.get("photo", "0"))),
                                  trace_name=f"{name}_trace" if trace else None)
-    run = run_frames(vo, reader, start, end, undistort, log=print)
+    stream = None
+    if not int(args.get("no_native", "0")):
+        stream = NativeImageReader(args["image"], (cam.width, cam.height))
+    viewer = None
+    if int(args.get("live", "0")):
+        viewer = LiveViewer(out_dir=os.path.join("result", "live"), every=int(args["live"]))
+    try:
+        run = run_frames(vo, reader, start, end, undistort, log=print, stream=stream,
+                         viewer=viewer)
+    finally:
+        if stream is not None:
+            stream.close()
     dt = run["seconds"]
     out = os.path.join("result", f"{name}.txt")
     n_kf = save_keyframe_trajectory(vo, out)

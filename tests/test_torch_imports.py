@@ -37,7 +37,9 @@ def test_module_list_is_complete():
                  "hso_tpu_torch.io.trajectory", "hso_tpu_torch.utils.trace",
                  "hso_tpu_torch.photometric", "hso_tpu_torch.photometric.online_calib",
                  "hso_tpu_torch.run_dataset", "hso_tpu_torch.tools.make_synthetic_dataset",
-                 "hso_tpu_torch.tools.boxseq_multirun"):
+                 "hso_tpu_torch.tools.boxseq_multirun", "hso_tpu_torch.io.native_reader",
+                 "hso_tpu_torch.utils.live_view", "hso_tpu_torch.ba.distributed",
+                 "hso_tpu_torch.tools.multiproc_ba", "hso_tpu_torch.tools.host_loops"):
         assert name in MODULES
 
 
@@ -83,6 +85,17 @@ def test_reused_rows_tool_refuses_to_run_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     res = subprocess.run([sys.executable, "-m", "hso_tpu_torch.tools.reused_rows"], cwd=ROOT,
+                         env=dict(os.environ, PYTHONPATH=ROOT), capture_output=True, text=True,
+                         timeout=300)
+    assert res.returncode == 2 and res.stdout == ""
+    assert "--device cpu" in res.stderr
+
+
+def test_host_loops_tool_refuses_to_run_without_a_card():
+    """The host loops in turns never fall back to the CPU quietly."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    res = subprocess.run([sys.executable, "-m", "hso_tpu_torch.tools.host_loops"], cwd=ROOT,
                          env=dict(os.environ, PYTHONPATH=ROOT), capture_output=True, text=True,
                          timeout=300)
     assert res.returncode == 2 and res.stdout == ""
@@ -179,3 +192,41 @@ def test_build_without_compiler_raises():
         pytest.skip("a CUDA compiler is installed: the build would succeed")
     with pytest.raises(RuntimeError):
         _cuda_build.build()
+
+
+def test_every_jax_module_has_its_counterpart():
+    """Every module of the JAX package has a module of the same path in the
+    port; a ``*_pallas.py`` kernel module has its CUDA wrapper
+    (``*_cuda.py``) and source (``csrc/*.cu``) instead."""
+    kernels = {"ops/window_pallas.py": ("ops/window_cuda.py", "window.cu"),
+               "ops/align_pallas.py": ("ops/align_cuda.py", "align.cu"),
+               "ops/epipolar_pallas.py": ("ops/epipolar_cuda.py", "epipolar.cu"),
+               "track/coarse_pallas.py": ("track/coarse_cuda.py", "coarse.cu"),
+               "track/pose_pallas.py": ("track/pose_cuda.py", "pose.cu")}
+    jax_root = os.path.join(ROOT, "hso_tpu")
+    port_root = os.path.join(ROOT, "hso_tpu_torch")
+    missing = []
+    for d, _, names in os.walk(jax_root):
+        for n in names:
+            if not n.endswith(".py"):
+                continue
+            rel = os.path.relpath(os.path.join(d, n), jax_root)
+            if rel in kernels:
+                wrapper, src = kernels[rel]
+                ok = (os.path.exists(os.path.join(port_root, wrapper))
+                      and os.path.exists(os.path.join(port_root, "csrc", src)))
+            else:
+                ok = os.path.exists(os.path.join(port_root, rel))
+            if not ok:
+                missing.append(rel)
+    assert not missing, missing
+
+
+def test_no_jax_feature_is_left_unported():
+    """No module of the port raises ``NotImplementedError`` for a feature the
+    JAX package has."""
+    for d, _, names in os.walk(os.path.join(ROOT, "hso_tpu_torch")):
+        for n in names:
+            if n.endswith(".py"):
+                with open(os.path.join(d, n)) as fh:
+                    assert "NotImplementedError" not in fh.read(), n

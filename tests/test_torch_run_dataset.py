@@ -5,6 +5,9 @@ the JAX handler run on the same images (read by the JAX ``ImageReader``,
 stamped and written by the JAX writer).  The trace CSV has one row a frame
 and the JAX handler's columns.
 
+The runner reads through the prefetching reader and drives the live viewer
+(``live=8``).
+
 The keyframes up to the first BA that moves the map (frames 0, 9 and the
 event at 10) have equal stamps and positions to 1e-5.  That BA has a free
 scale (only keyframe 0 is held fixed, ROADMAP §3): each side's solve moves
@@ -77,7 +80,7 @@ def runs(tmp_path_factory):
         rc = run_dataset.main([f"image={data}/images", f"calib={data}/calib.txt",
                                f"times={data}/times.txt", "cpu=1", "trace=1",
                                f"gt={data}/groundtruth.txt", "name=box",
-                               f"ate_json={tmp}/ate.json"])
+                               f"ate_json={tmp}/ate.json", "live=8"])
         assert rc == 0
         jax_run(data, tmp)
     finally:
@@ -173,5 +176,14 @@ def test_runner_refuses_without_a_card_and_live(tmp_path):
     res = subprocess.run([sys.executable, "-m", "hso_tpu_torch.run_dataset"], cwd=tmp_path,
                          env=env, capture_output=True, text=True, timeout=300)
     assert res.returncode == 1 and "image=" in res.stdout
-    with pytest.raises(NotImplementedError):
-        run_dataset.main([f"image={tmp_path}", f"calib={tmp_path}/c.txt", "live=5"])
+    # live= is taken, and the runner still refuses to run without a card
+    assert run_dataset.main([f"image={tmp_path}", f"calib={tmp_path}/c.txt", "live=5"]) == 2
+
+
+def test_live_view_through_the_runner(runs):
+    """``live=8``: the viewer's two PNGs, refreshed at frame 24, decode to a
+    640×480 tracking image and the map."""
+    live = runs["tmp"] / "result" / "live"
+    track, mapped = read_png(str(live / "tracking.png")), read_png(str(live / "map.png"))
+    assert track.shape == (480, 640, 3) and mapped.shape[2] == 3
+    assert (mapped != 255).any()
