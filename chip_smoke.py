@@ -1049,6 +1049,25 @@ def latency_floor(results, device) -> dict:
                 us_per_evaluation=per_eval, latency_floor_ms=floors)
 
 
+def add_latency_floors(results, latency) -> None:
+    """The latency floor of the K3 and K5 rows held after the ``latency``
+    phase (the handler's and the cameras' call shapes), from that phase's
+    figures a round at the block size the row's launch used."""
+    per_eval = latency["us_per_evaluation"]
+    for key, r in results.items():
+        name = key.partition("@")[0]
+        if "latency_floor_ms" in r or "evaluations" not in r:
+            continue
+        if name == "coarse_level_ic":
+            k = f"k3@{r['threads']}"
+        elif name == "pose_lm" and r["threads"] == latency["k5_threads"]:
+            k = "k5"
+        else:
+            continue
+        if k in per_eval:
+            r["latency_floor_ms"] = r["evaluations"] * per_eval[k] * 1e-3
+
+
 # ------------------------------------------------------------------ track phase
 def initial_state(cam, cfg, device):
     """The state both steps start from (the tracking step ignores the seed
@@ -1759,7 +1778,10 @@ def hold_k2_calls(calls, key, device, results, launches):
         bound_ms=b_ms, bound_by=b_by, phase_launches=launches)
 
 
-def hold_k3_calls(calls, key, device, results, launches):
+def hold_k3_calls(calls, key, device, results, launches, proj_flops: int = 0):
+    """K3 on recorded calls against its plain version (each call's projection
+    model included); ``proj_flops``: the operations an item spends on a
+    distorted projection in each evaluation (0 for the ideal pinhole)."""
     worst = 0.0
     for args, kw in calls:
         got = coarse_cuda.coarse_level_ic_cuda(*args, **kw)
@@ -1771,12 +1793,14 @@ def hold_k3_calls(calls, key, device, results, launches):
     n, p = args[1].shape
     iters = int(coarse_cuda.coarse_level_ic_cuda(*args, **kw)[4])
     nbytes = n * 576 * 4 + n * p * 4 + n * p * 24 + n * 12 + n * 8 + n + 12 * 4 + 12 + 64
-    b_ms, b_by = bound(nbytes, (iters + 1) * (n * p * 100 + n * 30))
+    b_ms, b_by = bound(nbytes, (iters + 1) * (n * p * (100 + proj_flops) + n * 30))
     launch, _ = coarse_cuda.coarse_level_ic_prepare(*args, **kw)
+    model = kw.get("projection", coarse_cuda.IDEAL)[0]
     results[key] = dict(
-        max_abs_err=worst, tol=1e-3, calls_held=len(calls),
+        max_abs_err=worst, tol=1e-3, calls_held=len(calls), projection=model,
+        evaluations=iters + 1, threads=coarse_cuda.coarse_launch_plan(n, p)[1],
         shape=f"N={n} P={p} image={kw['h_img']}x{kw['w_img']}, n_iter={kw['n_iter']}, "
-              f"{iters} iterations ({len(calls)} levels held)",
+              f"{iters} iterations, {model} projection ({len(calls)} calls held)",
         ms=time_ms(launch, device),
         device_ms=graph_ms(time_ms, lambda: coarse_cuda.coarse_level_ic_prepare(*args, **kw),
                            device),
@@ -1825,7 +1849,8 @@ def hold_k5_calls(calls, key, device, results, launches):
     b_ms, b_by = bound(n * 8 * 4 + 3 * n + 12 * 4 + 8 + 256, trials * n * 190 + n * 40)
     launch, _ = pose_cuda.pose_lm_prepare(*args, **kw)
     results[key] = dict(
-        max_abs_err=worst, tol=5e-4, calls_held=len(calls),
+        max_abs_err=worst, tol=5e-4, calls_held=len(calls), evaluations=trials + 1,
+        threads=(n + 31) // 32 * 32,
         shape=f"N={n} ({int(args[7].sum())} valid), {trials} trials ({len(calls)} calls held)",
         ms=time_ms(launch, device),
         device_ms=graph_ms(time_ms, lambda: pose_cuda.pose_lm_prepare(*args, **kw), device),
@@ -2324,6 +2349,137 @@ def photometric_card_vs_cpu(call, calib, img, device) -> dict:
     return d
 
 
+# ------------------------------------------------------------------ cameras phase
+#: the calibrations of data/cameras: EuRoC (752×480 radial-tangential pinhole),
+#: ICL-NUIM (640×480 ideal pinhole), TUM MonoVO narrow (FOV, 920×736 after the
+#: resolution cut) and wide (the same size, rectified on the device)
+CALIBRATIONS = ("euroc", "icl-nuim", "tum_mono_vo_narrow", "tum_mono_vo_wide")
+N_CAM = 28               #: frames of each calibration's live run (bootstrap, ≥ 1 decided event)
+N_CAM_COUNTED = 4        #: frames after it whose host syncs are counted
+N_CAM_REPEAT = 16        #: frames of the second run, held bit for bit
+#: operations an item of K3 spends on its projection in an evaluation
+PROJECTION_FLOPS = {"ideal": 0, "radtan": 25, "fov": 30}
+
+
+def cameras_phase(device, smi, results) -> tuple:
+    """The four calibrations of ``data/cameras`` at their own sizes (with the
+    resolution cut of ``parse_calib``), through the entry points of the
+    dataset runner: ``run_dataset.make_handler`` (the rectifying
+    ``Undistorter`` and ``cam.ideal()`` where the file asks for rectification)
+    and ``add_image``, default ``Config``, the bench's box scene and
+    trajectory rendered through the calibration's own camera.
+
+    Per calibration, counters set to 0 just before the live run and read just
+    after: frame 0 through the bootstrap and ≥ 1 keyframe event the handler
+    decides; gates: no failure, ATE < 0.10 m, ≥ 50 inliers a frame from the
+    bootstrap on, K3 launched; then ``N_CAM_COUNTED`` frames with their host
+    syncs counted (2 a frame without an event, asserted on the card), the
+    first ``N_CAM_REPEAT`` frames again bit for bit, and the frames through
+    the bootstrap on the CPU from the same inputs (statuses and points equal,
+    poses to 1e-5, the ``handler`` phase's tolerance).  K3 is held against its
+    plain version on the level-1 calls of the live run, with the camera's
+    projection model.  Returns (launches summed over the live runs,
+    {results key: launches at that shape})."""
+    from hso_tpu_torch.cameras import projection_model
+    from hso_tpu_torch.io.calib import parse_calib
+    from hso_tpu_torch.run_dataset import make_handler
+
+    cpu = torch.device("cpu")
+    total = {name: 0 for name in COUNTERS}
+    shape_launches = {}
+    docs = {}
+    gt = trajectory(N_CAM + N_CAM_COUNTED)
+    for name in CALIBRATIONS:
+        cam = parse_calib(os.path.join(ROOT, "data", "cameras", f"{name}.txt"))
+        frames = render_frames(bench_scene(cam), gt)
+        tally = SiteTally()
+        with handler_sites(tally):
+            vo, und = make_handler(cam, device)
+            model = projection_model(vo.cam)
+            tally.trace(vo)
+            feed = und if und is not None else (lambda img: img)
+            zero_counters()
+            live = drive_handler(vo, [feed(f) for f in frames[:N_CAM]], device)
+            launches = read_counters()
+        for k in COUNTERS:
+            total[k] += launches[k]
+            # (on the CPU the call sites take the plain versions: no launch)
+            assert tally.total(k) == launches[k] or device.type != "cuda", \
+                f"{name}: {k} call sites {tally.counts.get(k)} but {launches[k]} launches"
+        assert tally.total("coarse_level_ic") > 0, f"{name}: K3 was never called"
+        assert not any(r["status"] == RESULT_FAILURE for r in live), \
+            (name, [r["status"] for r in live])
+        i_boot = next(i for i, r in enumerate(live) if r["stage"] == STAGE_DEFAULT)
+        decided = [i for i, r in enumerate(live) if r["decided"]]
+        assert decided, f"{name}: the handler decided no keyframe event in {N_CAM} frames"
+        min_inl = min(r["n_inliers"] for r in live[i_boot:])
+        assert min_inl >= 50, f"{name}: a frame kept only {min_inl} inliers"
+        ate_m = handler_ate(live, gt)
+        assert ate_m < 0.10, f"{name}: ATE RMSE {ate_m:.4f} m exceeds the 0.10 m gate"
+
+        # host syncs a frame, the rectification included
+        counted = []
+        for j in range(N_CAM, N_CAM + N_CAM_COUNTED):
+            rec, sites, waits = count_host_waits(
+                lambda: drive_handler(vo, [feed(frames[j])], device, first_ts=j))
+            counted.append((rec[0]["status"], sites, waits))
+        plain_frames = [c for c in counted if c[0] != RESULT_KEYFRAME]
+        assert plain_frames, f"{name}: every counted frame had a keyframe event"
+        for _, sites, waits in plain_frames if device.type == "cuda" else ():
+            assert sum(sites.values()) == 2 and waits == 0, \
+                f"{name}: a frame without a keyframe event waited at {sites}, {waits}"
+
+        # the first frames again: the same bits
+        vo2, und2 = make_handler(cam, device)
+        feed2 = und2 if und2 is not None else (lambda img: img)
+        again = drive_handler(vo2, [feed2(f) for f in frames[:N_CAM_REPEAT]], device)
+        for k, (a, b) in enumerate(zip(live, again)):
+            for key in ("status", "n_matches", "n_inliers", "points"):
+                assert a[key] == b[key], f"{name}, second run: frame {k} {key}"
+            assert np.array_equal(a["T"], b["T"]), f"{name}, second run: frame {k} pose"
+
+        # the frames through the bootstrap on the CPU from the same inputs
+        before = read_counters()
+        vo_c, und_c = make_handler(cam, cpu)
+        feed_c = und_c if und_c is not None else (lambda img: img)
+        boot_cpu = drive_handler(vo_c, [feed_c(f) for f in frames[:i_boot + 1]], cpu)
+        assert read_counters() == before, "the CPU run launched a kernel"
+        assert [r["status"] for r in boot_cpu] == [r["status"] for r in live[:i_boot + 1]]
+        assert [r["points"] for r in boot_cpu] == [r["points"] for r in live[:i_boot + 1]]
+        d_boot = max(float(np.abs(c["T"] - g["T"]).max()) for c, g in zip(boot_cpu, live))
+        assert d_boot <= 1e-5, f"{name}: bootstrap card vs CPU: {d_boot}"
+
+        # K3 on the live run's level-1 calls against its plain version
+        key = f"coarse_level_ic@{name}"
+        parts = ("step:tracker:", f"h{cam.height >> 1} ")
+        calls = tally.matching("coarse_level_ic", *parts)
+        assert calls and all(kw["projection"] == model for _, kw in calls), key
+        shape_launches[key] = tally.launches("coarse_level_ic", *parts)
+        hold_k3_calls(calls, key, device, results, shape_launches[key],
+                      proj_flops=PROJECTION_FLOPS[model[0]])
+        emit("kernels", name=key, card=smi, **results[key])
+
+        docs[name] = dict(
+            camera=type(cam).__name__, size=[cam.width, cam.height],
+            intrinsics=[cam.fx, cam.fy, cam.cx, cam.cy], rectified=und is not None,
+            handler_camera=type(vo.cam).__name__, projection=model[0],
+            frames=N_CAM, bootstrap_frame=i_boot, decided_keyframes=decided,
+            statuses=[r["status"] for r in live], min_inliers=min_inl,
+            mean_inliers=statistics.mean(r["n_inliers"] for r in live[i_boot:]),
+            mean_matches=statistics.mean(r["n_matches"] for r in live[i_boot:]),
+            ate_rmse_m=ate_m, points=live[-1]["points"],
+            ms_per_frame_median=statistics.median(r["ms"] for r in live[i_boot + 1:]),
+            counted_statuses=[c[0] for c in counted],
+            stream_syncs_a_frame=[sum(c[1].values()) for c in counted],
+            copy_waits_a_frame=[c[2] for c in counted],
+            second_run_frames=N_CAM_REPEAT, second_run_bitwise_equal=True,
+            bootstrap_card_vs_cpu=dict(frames=i_boot + 1, max_abs=d_boot),
+            launches=launches,
+            launches_by_site={k: dict(sorted(c.items())) for k, c in tally.counts.items()})
+    emit("cameras", card=smi, calibrations=docs, launches=total)
+    return total, shape_launches
+
+
 def dataset_phase(device, smi) -> tuple:
     """The dataset path users call: ``make_synthetic_dataset`` writes the box
     sequence's first ``N_DATASET`` frames (PNG by the port's codec) to a
@@ -2539,13 +2695,16 @@ def dataset_phase(device, smi) -> tuple:
 
 def kernel_resources() -> dict:
     """Registers, stack, spills and static shared memory of K1 and K2 (each
-    window-edge instance), K3 (both instances), K4, K5 and K6, as ``ptxas -v``
-    printed them in the build."""
+    window-edge instance), K3 (its six instances: windows resident or not, by
+    projection model), K4, K5 and K6, as ``ptxas -v`` printed them in the
+    build."""
     names = {f"{k}_windows_kernelILi{w}E": f"{k}_windows_kernel<{w or 'any'}>"
              for k in ("extract", "pack_level") for w in (24, 40, 44, 0)}
-    names.update({"coarse_level_ic_kernelILb1": "coarse_level_ic_kernel<windows resident>",
-             "coarse_level_ic_kernelILb0": "coarse_level_ic_kernel<windows in global memory>",
-             "pose_lm_kernel": "pose_lm_kernel",
+    names.update({f"coarse_level_ic_kernelILb{r}ELi{m}E":
+                  f"coarse_level_ic_kernel<windows {where}, {model}>"
+                  for r, where in ((1, "resident"), (0, "in global memory"))
+                  for m, model in enumerate(("ideal", "radtan", "fov"))})
+    names.update({"pose_lm_kernel": "pose_lm_kernel",
              "align_match_kernel": "align_match_kernel",
              "zmncc_line_kernel": "zmncc_line_kernel"})
     found = {}
@@ -2804,6 +2963,9 @@ def main() -> int:
     launches_pipelined = pipelined_phase(cam, cfg, scene, device, smi)
     distributed_phase(smi)
     launches_dataset = dataset_phase(device, smi)
+    launches_cameras, camera_shapes = cameras_phase(device, smi, results)
+    handler_shapes = dict(handler_shapes, **camera_shapes)
+    add_latency_floors(results, latency)
 
     def launches_of(key):
         """A results key is ``kernel`` or ``kernel@where``: launches of that
@@ -2833,12 +2995,14 @@ def main() -> int:
             replaces=KERNEL_META[name][1], launches=n, max_abs_err=r["max_abs_err"],
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"],
-            launches_in=("handler" if key in handler_shapes else "scan"),
+            launches_in=("cameras" if key in camera_shapes else
+                         "handler" if key in handler_shapes else "scan"),
             handler_phase_launches=launches_handler[name],
             pipelined_phase_launches=launches_pipelined[name],
             dataset_phase_launches=launches_dataset[name],
-            **{k: r[k] for k in ("latency_floor_ms", "launch_ms", "bound_work_done_ms")
-               if k in r}))
+            cameras_phase_launches=launches_cameras[name],
+            **{k: r[k] for k in ("latency_floor_ms", "launch_ms", "bound_work_done_ms",
+                                 "device_ms", "projection") if k in r}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

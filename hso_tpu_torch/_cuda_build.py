@@ -160,6 +160,10 @@ _SIGNATURES = {
     "hso_coarse_level_ic": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                             _F, _F, _F, _F, _I, _I, _I, _I,
                             ctypes.POINTER(PatternTable), _I, _I, _I, _I, _I, _P, _P],
+    "hso_coarse_level_ic_model": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                  _F, _F, _F, _F, _I, _I, _I, _I,
+                                  ctypes.POINTER(PatternTable), _I, _I, _I, _I, _I,
+                                  _I, _F, _F, _F, _F, _F, _P, _P],
     "hso_align_match": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P],
     "hso_pose_lm": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P],
     "hso_zmncc_line_scores": [_P] * 11 + [_I, _I, _I] + [_P, _P, _P, _P],

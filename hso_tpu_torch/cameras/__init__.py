@@ -3,4 +3,5 @@ from hso_tpu_torch.cameras.models import (  # noqa: F401
     EquidistantCamera,
     FOVCamera,
     PinholeCamera,
+    projection_model,
 )

@@ -1,6 +1,8 @@
 """Concrete camera models: pinhole with radial-tangential distortion, FOV
 (ATAN) and equidistant fisheye.  The radial-tangential distortion is inverted
-by a fixed-point iteration with a fixed trip count.
+by a fixed-point iteration with a fixed trip count.  :func:`projection_model`
+says how a camera's ``world2cam`` projects, for the kernels that project
+without the camera object (K3).
 """
 
 from __future__ import annotations
@@ -120,3 +122,31 @@ class EquidistantCamera(AbstractCamera):
         xd, yd = self._equi_distort(x, y)
         return ((xd * self.fx + self.cx).astype(np.float32),
                 (yd * self.fy + self.cy).astype(np.float32))
+
+
+#: the projection models a kernel takes, by their number in ``csrc/coarse.cu``
+PROJECTIONS = {"ideal": 0, "radtan": 1, "fov": 2}
+
+
+def projection_model(cam):
+    """How ``cam.world2cam`` projects a camera-frame point, as
+    ``(model, coefficients)``: ``("ideal", ())``, ``("radtan", (k1, k2, p1, p2,
+    k3))`` or ``("fov", (omega, 2·tan(omega/2)))``; ``None`` for a camera whose
+    projection is none of these (a subclass with its own ``distort`` or
+    ``world2cam``).  Decided by the camera's own ``has_distortion``, the flag
+    its ``distort`` reads, not by its class: the ideal pinhole of ``ideal()``,
+    a rectified FOV camera, an equidistant camera (its images are always
+    rectified) and a pinhole without distortion all project ``ideal``."""
+    kind = type(cam)
+    if (kind.world2cam is not AbstractCamera.world2cam
+            or kind.world2cam_uv is not AbstractCamera.world2cam_uv):
+        return None
+    if kind.distort is AbstractCamera.distort:
+        return "ideal", ()
+    if kind.distort is PinholeCamera.distort:
+        return ("radtan", cam.d) if cam.has_distortion else ("ideal", ())
+    if kind.distort is FOVCamera.distort:
+        if not cam.has_distortion:
+            return "ideal", ()
+        return "fov", (cam.omega, 2.0 * math.tan(cam.omega / 2.0))
+    return None

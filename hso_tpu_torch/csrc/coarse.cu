@@ -37,6 +37,14 @@
 //  * Shapes whose per-block data does not fit 227 KB run the same kernel with
 //    the windows left in global memory (template flag RESIDENT = false) and
 //    only the per-item tables resident.  The plan depends on (N, P) alone.
+//  * The projection is the camera's (template parameter MODEL): the ideal
+//    pinhole, the pinhole with radial-tangential distortion (k1 k2 p1 p2 k3)
+//    or the FOV/ATAN model (omega and 2 tan(omega/2)), with the formulas of
+//    the port's cameras/models.py.  The residual's Jacobian stays the
+//    template Jacobian computed outside, on both sides; only the projection
+//    that places the pattern in the current window changes.  The ideal
+//    instance is the code of the entry hso_coarse_level_ic, whose arguments
+//    and bits did not change when the models came.
 #include <cooperative_groups.h>
 #include <cuda_pipeline.h>
 
@@ -65,6 +73,8 @@ constexpr size_t SMEM_MAX = 232448;
 int g_cluster = 0;
 int g_threads = 0;
 
+enum Model { IDEAL = 0, RADTAN = 1, FOV = 2 };
+
 struct Args {
     const float* w_cur;       // (N, 24, 24)
     const float* ref_patch;   // (N, P)
@@ -74,6 +84,8 @@ struct Args {
     const int* av;            // (N)
     const unsigned char* vis; // (N)
     float fx, fy, cx, cy;
+    float dc[5];              // the model's coefficients (radtan: k1 k2 p1 p2 k3;
+                              // fov: omega, 2 tan(omega/2))
     int N, P, g, center;
     int is_top, border, h_img, w_img;
     float huber, cutoff;
@@ -121,8 +133,42 @@ struct Smem {
     int nf;                // features this block owns (may be 0)
 };
 
+// The level's pixel of a camera-frame point through the camera's model.
+template <int MODEL>
+__device__ __forceinline__ void project(const Args& A, float xc, float yc, float zc, float& u,
+                                        float& v) {
+    const float zi = 1.0f / (fabsf(zc) < 1e-9f ? 1e-9f : zc);
+    if (MODEL == IDEAL) {
+        u = A.fx * xc * zi + A.cx;
+        v = A.fy * yc * zi + A.cy;
+        return;
+    }
+    const float x = xc * zi, y = yc * zi;
+    float xd, yd;
+    if (MODEL == RADTAN) {
+        const float r2 = x * x + y * y;
+        const float r4 = r2 * r2;
+        const float r6 = r4 * r2;
+        const float a1 = 2.0f * x * y;
+        const float a2 = r2 + 2.0f * x * x;
+        const float a3 = r2 + 2.0f * y * y;
+        const float cdist = 1.0f + A.dc[0] * r2 + A.dc[1] * r4 + A.dc[4] * r6;
+        xd = x * cdist + A.dc[2] * a1 + A.dc[3] * a2;
+        yd = y * cdist + A.dc[2] * a3 + A.dc[3] * a1;
+    } else {
+        const float r = sqrtf(x * x + y * y);
+        const float rs = fmaxf(r, 1e-12f);
+        const float fac = r < 1e-12f ? 1.0f : atanf(rs * A.dc[1]) / (rs * A.dc[0]);
+        xd = fac * x;
+        yd = fac * y;
+    }
+    u = A.fx * xd + A.cx;
+    v = A.fy * yd + A.cy;
+}
+
 // Evaluate the robust system at (T, a) over the cluster: fills dst[NS]
 // (shared, this block's copy of the cluster-wide sums) for all threads.
+template <int MODEL>
 __device__ __forceinline__ void evaluate(const Args& A, const Smem& S,
                                          const float (&T)[12], float a, int parity, float* dst,
                                          cg::cluster_group& cluster) {
@@ -139,9 +185,8 @@ __device__ __forceinline__ void evaluate(const Args& A, const Smem& S,
         const float xc = T[0] * X + T[1] * Y + T[2] * Z + T[3];
         const float yc = T[4] * X + T[5] * Y + T[6] * Z + T[7];
         const float zc = T[8] * X + T[9] * Y + T[10] * Z + T[11];
-        const float zi = 1.0f / (fabsf(zc) < 1e-9f ? 1e-9f : zc);
-        const float u = A.fx * xc * zi + A.cx;
-        const float v = A.fy * yc * zi + A.cy;
+        float u, v;
+        project<MODEL>(A, xc, yc, zc, u, v);
         const float rel_u = u - (float)A.center - S.au[n];
         const float rel_v = v - (float)A.center - S.av[n];
         const float uf = floorf(u), vf = floorf(v);
@@ -204,7 +249,7 @@ __device__ __forceinline__ void evaluate(const Args& A, const Smem& S,
     __syncthreads();
 }
 
-template <bool RESIDENT>
+template <bool RESIDENT, int MODEL>
 __global__ void __launch_bounds__(MAX_THREADS)
 coarse_level_ic_kernel(Args A, PatternTable pat, const float* __restrict__ T0,
                        const float* __restrict__ sc, int n_iter, int feats,
@@ -271,7 +316,7 @@ coarse_level_ic_kernel(Args A, PatternTable pat, const float* __restrict__ T0,
     __pipeline_wait_prior(0);
     __syncthreads();
 
-    evaluate(A, S, T, a, evals++ & 1, S.tot + cur * NS, cluster);
+    evaluate<MODEL>(A, S, T, a, evals++ & 1, S.tot + cur * NS, cluster);
     float nt = S.tot[cur * NS + 36];
     float E = S.tot[cur * NS + 35] / fmaxf(nt, 1.0f);
 
@@ -291,7 +336,7 @@ coarse_level_ic_kernel(Args A, PatternTable pat, const float* __restrict__ T0,
         an = S.step[12];
         stepnorm = S.step[13];
         const float* cand = S.tot + (1 - cur) * NS;
-        evaluate(A, S, Tn, an, evals++ & 1, S.tot + (1 - cur) * NS, cluster);
+        evaluate<MODEL>(A, S, Tn, an, evals++ & 1, S.tot + (1 - cur) * NS, cluster);
         const float E_new = cand[35] / fmaxf(cand[36], 1.0f);
         if (E_new < E) {                              // false on NaN: reject
 #pragma unroll
@@ -318,10 +363,10 @@ coarse_level_ic_kernel(Args A, PatternTable pat, const float* __restrict__ T0,
     }
 }
 
-template <bool RESIDENT>
+template <bool RESIDENT, int MODEL>
 cudaError_t launch(const Plan& pl, const Args& A, const PatternTable& pat, const float* T0,
                    const float* sc, int n_iter, float* out, cudaStream_t stream) {
-    auto kernel = coarse_level_ic_kernel<RESIDENT>;
+    auto kernel = coarse_level_ic_kernel<RESIDENT, MODEL>;
     static hso::SmemOptIn opted;       // one per template instance
     const cudaError_t e = hso::allow_dynamic_smem(kernel, pl.smem, opted);
     if (e != cudaSuccess) return e;
@@ -338,6 +383,39 @@ cudaError_t launch(const Plan& pl, const Args& A, const PatternTable& pat, const
     cfg.attrs = attr;
     cfg.numAttrs = 1;
     return cudaLaunchKernelEx(&cfg, kernel, A, pat, T0, sc, n_iter, pl.feats, out);
+}
+
+template <int MODEL>
+cudaError_t launch_model(const Plan& pl, const Args& A, const PatternTable& pat, const float* T0,
+                         const float* sc, int n_iter, float* out, cudaStream_t stream) {
+    return pl.resident ? launch<true, MODEL>(pl, A, pat, T0, sc, n_iter, out, stream)
+                       : launch<false, MODEL>(pl, A, pat, T0, sc, n_iter, out, stream);
+}
+
+int level_ic(const float* w_cur, const float* ref_patch, const float* j_ic, const float* xyz_ref,
+             const int* au, const int* av, const unsigned char* vis, const float* T0,
+             const float* sc, float fx, float fy, float cx, float cy, int N, int P, int g,
+             int center, const PatternTable* pat, int n_iter, int is_top, int border, int h_img,
+             int w_img, int model, const float (&coef)[5], float* out, cudaStream_t stream) {
+    Args A;
+    A.w_cur = w_cur; A.ref_patch = ref_patch; A.j_ic = j_ic; A.xyz_ref = xyz_ref;
+    A.au = au; A.av = av; A.vis = vis;
+    A.fx = fx; A.fy = fy; A.cx = cx; A.cy = cy;
+    for (int k = 0; k < 5; ++k) A.dc[k] = coef[k];
+    A.N = N; A.P = P; A.g = g; A.center = center;
+    A.is_top = is_top; A.border = border; A.h_img = h_img; A.w_img = w_img;
+    A.huber = 0.f; A.cutoff = 0.f;   // read from sc on the device
+    const Plan pl = plan_of(N, P);
+    if (pl.smem > SMEM_MAX) return (int)cudaErrorInvalidConfiguration;
+    cudaError_t e;
+    switch (model) {
+        case IDEAL: e = launch_model<IDEAL>(pl, A, *pat, T0, sc, n_iter, out, stream); break;
+        case RADTAN: e = launch_model<RADTAN>(pl, A, *pat, T0, sc, n_iter, out, stream); break;
+        case FOV: e = launch_model<FOV>(pl, A, *pat, T0, sc, n_iter, out, stream); break;
+        default: return (int)cudaErrorInvalidValue;
+    }
+    if (e != cudaSuccess) return (int)e;
+    return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -364,6 +442,7 @@ extern "C" int hso_coarse_plan_override(int cluster, int threads) {
     return 0;
 }
 
+// One level through the ideal pinhole.
 extern "C" int hso_coarse_level_ic(const float* w_cur, const float* ref_patch, const float* j_ic,
                                    const float* xyz_ref, const int* au, const int* av,
                                    const unsigned char* vis, const float* T0, const float* sc,
@@ -371,17 +450,25 @@ extern "C" int hso_coarse_level_ic(const float* w_cur, const float* ref_patch, c
                                    int center, const PatternTable* pat, int n_iter, int is_top,
                                    int border, int h_img, int w_img, float* out,
                                    cudaStream_t stream) {
-    Args A;
-    A.w_cur = w_cur; A.ref_patch = ref_patch; A.j_ic = j_ic; A.xyz_ref = xyz_ref;
-    A.au = au; A.av = av; A.vis = vis;
-    A.fx = fx; A.fy = fy; A.cx = cx; A.cy = cy;
-    A.N = N; A.P = P; A.g = g; A.center = center;
-    A.is_top = is_top; A.border = border; A.h_img = h_img; A.w_img = w_img;
-    A.huber = 0.f; A.cutoff = 0.f;   // read from sc on the device
-    const Plan pl = plan_of(N, P);
-    if (pl.smem > SMEM_MAX) return (int)cudaErrorInvalidConfiguration;
-    const cudaError_t e = pl.resident ? launch<true>(pl, A, *pat, T0, sc, n_iter, out, stream)
-                                      : launch<false>(pl, A, *pat, T0, sc, n_iter, out, stream);
-    if (e != cudaSuccess) return (int)e;
-    return (int)cudaGetLastError();
+    const float none[5] = {0.f, 0.f, 0.f, 0.f, 0.f};
+    return level_ic(w_cur, ref_patch, j_ic, xyz_ref, au, av, vis, T0, sc, fx, fy, cx, cy, N, P,
+                    g, center, pat, n_iter, is_top, border, h_img, w_img, IDEAL, none, out,
+                    stream);
+}
+
+// One level through the camera model `model` (0 ideal, 1 radtan, 2 fov) with
+// its coefficients c0..c4 (radtan: k1 k2 p1 p2 k3; fov: omega, 2 tan(omega/2),
+// the rest unused).
+extern "C" int hso_coarse_level_ic_model(const float* w_cur, const float* ref_patch,
+                                         const float* j_ic, const float* xyz_ref, const int* au,
+                                         const int* av, const unsigned char* vis, const float* T0,
+                                         const float* sc, float fx, float fy, float cx, float cy,
+                                         int N, int P, int g, int center, const PatternTable* pat,
+                                         int n_iter, int is_top, int border, int h_img, int w_img,
+                                         int model, float c0, float c1, float c2, float c3,
+                                         float c4, float* out, cudaStream_t stream) {
+    const float coef[5] = {c0, c1, c2, c3, c4};
+    return level_ic(w_cur, ref_patch, j_ic, xyz_ref, au, av, vis, T0, sc, fx, fy, cx, cy, N, P,
+                    g, center, pat, n_iter, is_top, border, h_img, w_img, model, coef, out,
+                    stream);
 }

@@ -51,16 +51,20 @@ USAGE = __doc__.split("\n\n")[1]
 
 class Undistorter:
     """Whole-image rectification on the device: the camera's remap tables
-    uploaded once, each frame resampled bilinearly and truncated to uint8."""
+    uploaded once, each frame resampled bilinearly and truncated to uint8.
+    On the card a frame goes up as a non-blocking copy from pinned memory, so
+    the host does not wait for the device (as ``FrameHandler._h2d``)."""
 
     def __init__(self, cam, device):
         mx, my = cam.undistort_remap()
-        self.map_x = torch.from_numpy(mx).to(device)
-        self.map_y = torch.from_numpy(my).to(device)
-        self.device = device
+        self.device = torch.device(device)
+        self.map_x = torch.from_numpy(mx).to(self.device)
+        self.map_y = torch.from_numpy(my).to(self.device)
 
     def __call__(self, img: np.ndarray) -> torch.Tensor:
-        t = torch.from_numpy(np.ascontiguousarray(img)).to(self.device)
+        t = torch.from_numpy(np.array(img, copy=True))
+        if self.device.type == "cuda":
+            t = t.pin_memory().to(self.device, non_blocking=True)
         return remap_bilinear(t, self.map_x, self.map_y).to(torch.uint8)
 
 

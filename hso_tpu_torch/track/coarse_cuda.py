@@ -7,24 +7,31 @@ pyramid level — project, bounds mask, pattern samples inside each feature's
 damped Cholesky, SE3 exp, accept/reject, early stop.  Device code:
 ``csrc/coarse.cu``: one thread-block cluster of 8 blocks runs the level with
 each block's features resident in its shared memory (so the kernel needs a
-device with cluster launch, compute capability 9.0 or newer).  IC and pinhole
-only; the forward-compositional variant runs the same :func:`lm_level_loop`
-in plain PyTorch on either device.  Dispatch rule: a CPU tensor takes the
-plain version, a CUDA tensor launches the kernel or raises.
+device with cluster launch, compute capability 9.0 or newer).  IC only, for
+the cameras whose projection :func:`~hso_tpu_torch.cameras.projection_model`
+names (the ideal pinhole, radial-tangential distortion, FOV): the level's
+projection goes through the camera's model (``projection=(model,
+coefficients)``, ideal by default); the forward-compositional variant runs
+the same :func:`lm_level_loop` in plain PyTorch on either device.  Dispatch
+rule: a CPU tensor takes the plain version, a CUDA tensor launches the kernel
+or raises.
 """
 
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
+from hso_tpu_torch.cameras.models import PROJECTIONS
 from hso_tpu_torch.math import se3
 from hso_tpu_torch.math.linalg_small import solve_spd_small
 from hso_tpu_torch.ops.gatherless import bilinear_scatter_in_windows, grid_in_window
 
 WIN = 24
 LAUNCHES = {"coarse_level_ic": 0}
+IDEAL = ("ideal", ())
 
 #: the launch plan's constants, mirrored from ``csrc/coarse.cu``
 CLUSTER = 8               # blocks of the cluster (the portable maximum)
@@ -156,21 +163,56 @@ def lm_level_loop(evaluate, T, a, n_iter: int, inverse: bool):
     return T, a, E_c, nt_c, iters
 
 
+def project_level(xyz_cur, fxl: float, fyl: float, cxl: float, cyl: float, projection=IDEAL):
+    """Level pixels (u, v) of camera-frame points through the camera's model,
+    as K3 computes them (the formulas of ``cameras/models.py``, the
+    coefficients as float32)."""
+    zc = xyz_cur[:, 2]
+    zi = 1.0 / torch.where(torch.abs(zc) < 1e-9, torch.full_like(zc, 1e-9), zc)
+    model, coef = projection
+    if model == "ideal":
+        return fxl * xyz_cur[:, 0] * zi + cxl, fyl * xyz_cur[:, 1] * zi + cyl
+    c = [float(np.float32(v)) for v in coef]
+    x = xyz_cur[:, 0] * zi
+    y = xyz_cur[:, 1] * zi
+    if model == "radtan":
+        k1, k2, p1, p2, k3 = c
+        r2 = x * x + y * y
+        r4 = r2 * r2
+        r6 = r4 * r2
+        a1 = 2.0 * x * y
+        a2 = r2 + 2.0 * x * x
+        a3 = r2 + 2.0 * y * y
+        cdist = 1.0 + k1 * r2 + k2 * r4 + k3 * r6
+        xd = x * cdist + p1 * a1 + p2 * a2
+        yd = y * cdist + p1 * a3 + p2 * a1
+    elif model == "fov":
+        omega, two_tan = c[:2]
+        r = torch.sqrt(x * x + y * y)
+        rs = torch.clamp_min(r, 1e-12)
+        fac = torch.where(r < 1e-12, torch.ones_like(r),
+                          torch.atan(rs * two_tan) / (rs * omega))
+        xd = fac * x
+        yd = fac * y
+    else:
+        raise ValueError(f"K3 has no projection model {model!r}")
+    return fxl * xd + cxl, fyl * yd + cyl
+
+
 def coarse_level_ic_plain(w_cur, ref_patch, j_ic, xyz_ref, au_c, av_c, vis, T0, a0,
                           huber, cutoff, fxl: float, fyl: float, cxl: float, cyl: float,
                           g: int, center: int, pattern: tuple, n_iter: int, is_top: bool,
-                          border: int, h_img: int, w_img: int):
-    """One coarse level (IC, pinhole) in plain PyTorch.  Returns (T (3,4), a,
-    E_norm, n_terms, iters); ``n_terms`` counts residuals, not features."""
+                          border: int, h_img: int, w_img: int, projection=IDEAL):
+    """One coarse level (IC) in plain PyTorch, projecting through
+    ``projection`` (:func:`project_level`).  Returns (T (3,4), a, E_norm,
+    n_terms, iters); ``n_terms`` counts residuals, not features."""
     au_f = au_c.to(torch.float32)
     av_f = av_c.to(torch.float32)
 
     def evaluate(T_e, a_e):
         xyz_cur = se3.apply(T_e, xyz_ref)
         zc = xyz_cur[:, 2]
-        zi = 1.0 / torch.where(torch.abs(zc) < 1e-9, torch.full_like(zc, 1e-9), zc)
-        u = fxl * xyz_cur[:, 0] * zi + cxl
-        v = fyl * xyz_cur[:, 1] * zi + cyl
+        u, v = project_level(xyz_cur, fxl, fyl, cxl, cyl, projection)
         rel_u = u - center - au_f
         rel_v = v - center - av_f
         uf = torch.floor(u)
@@ -188,12 +230,14 @@ def coarse_level_ic_plain(w_cur, ref_patch, j_ic, xyz_ref, au_c, av_c, vis, T0, 
 def coarse_level_ic_prepare(w_cur, ref_patch, j_ic, xyz_ref, au_c, av_c, vis, T0, a0,
                             huber, cutoff, fxl: float, fyl: float, cxl: float, cyl: float,
                             g: int, center: int, pattern: tuple, n_iter: int, is_top: bool,
-                            border: int, h_img: int, w_img: int):
+                            border: int, h_img: int, w_img: int, projection=IDEAL):
     """Check the tensors and prepare one launch of K3: returns ``(launch,
-    out)``.  ``launch()`` enqueues ``hso_coarse_level_ic`` on the stream that
-    was current here and adds one to the count; ``out`` (16 floats) receives
-    T, a, E_norm, n_terms, iterations.  A timing loop calls ``launch`` again
-    and again on the same inputs without the wrapper's tensor work."""
+    out)``.  ``launch()`` enqueues ``hso_coarse_level_ic`` (the ideal pinhole)
+    or ``hso_coarse_level_ic_model`` (another model, with its coefficients)
+    on the stream that was current here and adds one to the count; ``out``
+    (16 floats) receives T, a, E_norm, n_terms, iterations.  A timing loop
+    calls ``launch`` again and again on the same inputs without the wrapper's
+    tensor work."""
     from hso_tpu_torch import _cuda_build
 
     _want = _cuda_build.check_tensor
@@ -214,18 +258,26 @@ def coarse_level_ic_prepare(w_cur, ref_patch, j_ic, xyz_ref, au_c, av_c, vis, T0
     table = _cuda_build.PatternTable()
     for k, (dx, dy) in enumerate(pattern):
         table.dx[k], table.dy[k] = int(dx), int(dy)
+    model, coef = projection
+    if model not in PROJECTIONS or len(coef) > 5:
+        raise ValueError(f"K3 has no projection model {model!r} with {len(coef)} coefficients")
     out = torch.empty((16,), dtype=torch.float32, device=dev)
-    fn = _cuda_build.lib().hso_coarse_level_ic
     # the tuple keeps every tensor the kernel reads alive as long as `launch`
-    args = (w_cur.data_ptr(), ref_patch.data_ptr(), j_ic.data_ptr(), xyz_ref.data_ptr(),
+    args = [w_cur.data_ptr(), ref_patch.data_ptr(), j_ic.data_ptr(), xyz_ref.data_ptr(),
             au_c.data_ptr(), av_c.data_ptr(), vis.data_ptr(), T0.data_ptr(), sc.data_ptr(),
             fxl, fyl, cxl, cyl, n, p, g, center, ctypes.byref(table),
-            n_iter, int(is_top), border, h_img, w_img, out.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
+            n_iter, int(is_top), border, h_img, w_img]
+    if model == "ideal":
+        name = "hso_coarse_level_ic"
+    else:
+        name = "hso_coarse_level_ic_model"
+        args += [PROJECTIONS[model], *(tuple(coef) + (0.0,) * (5 - len(coef)))]
+    args += [out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream]
+    fn = getattr(_cuda_build.lib(), name)
     alive = (w_cur, ref_patch, j_ic, xyz_ref, au_c, av_c, vis, T0, sc, table, out)
 
     def launch(_alive=alive):
-        _cuda_build.check(fn(*args), "hso_coarse_level_ic")
+        _cuda_build.check(fn(*args), name)
         LAUNCHES["coarse_level_ic"] += 1
 
     return launch, out
@@ -234,14 +286,15 @@ def coarse_level_ic_prepare(w_cur, ref_patch, j_ic, xyz_ref, au_c, av_c, vis, T0
 def coarse_level_ic_cuda(w_cur, ref_patch, j_ic, xyz_ref, au_c, av_c, vis, T0, a0,
                          huber, cutoff, fxl: float, fyl: float, cxl: float, cyl: float,
                          g: int, center: int, pattern: tuple, n_iter: int, is_top: bool,
-                         border: int, h_img: int, w_img: int):
+                         border: int, h_img: int, w_img: int, projection=IDEAL):
     """K3: launch ``hso_coarse_level_ic`` on the current stream (one cluster
     of blocks runs the whole level loop, :func:`coarse_launch_plan`); the
     arguments of :func:`coarse_level_ic_plain`.  No host sync:
     ``a0``/``huber``/``cutoff`` travel as a small device tensor."""
     launch, out = coarse_level_ic_prepare(
         w_cur, ref_patch, j_ic, xyz_ref, au_c, av_c, vis, T0, a0, huber, cutoff,
-        fxl, fyl, cxl, cyl, g, center, pattern, n_iter, is_top, border, h_img, w_img)
+        fxl, fyl, cxl, cyl, g, center, pattern, n_iter, is_top, border, h_img, w_img,
+        projection)
     launch()
     return (out[:12].reshape(3, 4), out[12], out[13],
             out[14].to(torch.int32), out[15].to(torch.int32))
@@ -249,7 +302,7 @@ def coarse_level_ic_cuda(w_cur, ref_patch, j_ic, xyz_ref, au_c, av_c, vis, T0, a
 
 def coarse_level_ic(w_cur, ref_patch, j_ic, xyz_ref, au_c, av_c, vis, T0, a0,
                     huber, cutoff, *args, **kwargs):
-    """One coarse-tracker level (IC, pinhole): (T, a, E_norm, n_terms, iters)."""
+    """One coarse-tracker level (IC): (T, a, E_norm, n_terms, iters)."""
     if w_cur.is_cuda:
         c = torch.Tensor.contiguous
         return coarse_level_ic_cuda(c(w_cur), c(ref_patch), c(j_ic), c(xyz_ref), c(au_c),

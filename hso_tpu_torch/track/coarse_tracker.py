@@ -8,15 +8,19 @@ Per pyramid level one window extraction pulls a 24×24 window per feature
 around its reference position and around its predicted projection (one
 two-job launch of kernel K1 on the card); every LM
 evaluation then samples its pattern constellation inside those windows.
-The IC/pinhole level loop is one fused kernel on the card (K3,
-:mod:`hso_tpu_torch.track.coarse_cuda`); the FC variant runs the same loop
-in plain PyTorch on either device.
+The IC level loop is one fused kernel on the card (K3,
+:mod:`hso_tpu_torch.track.coarse_cuda`) for every camera whose projection
+:func:`~hso_tpu_torch.cameras.projection_model` names (the ideal pinhole,
+radial-tangential, FOV), projecting through the camera's model; the FC
+variant, and a camera of another model, run the same loop in plain PyTorch on
+either device.
 """
 
 from __future__ import annotations
 
 import torch
 
+from hso_tpu_torch.cameras import projection_model
 from hso_tpu_torch.math import se3
 from hso_tpu_torch.math.robust import masked_mad_sigma, masked_median
 from hso_tpu_torch.ops.gatherless import clip_anchor, grid_in_window
@@ -57,7 +61,8 @@ def make_coarse_tracker(cam, max_level: int = 4, min_level: int = 1, n_iter: int
     Inputs may be numpy arrays or tensors; they are moved to ``device``.
     """
     device = torch.device(device)
-    fused = inverse and type(cam).__name__ == "PinholeCamera"
+    projection = projection_model(cam)
+    fused = inverse and projection is not None
 
     def level_step(level, T, a, ref_img, cur_img, px_ref, f_ref, dist_ref):
         pat_idx = max_level - level + pattern_offset
@@ -139,7 +144,7 @@ def make_coarse_tracker(cam, max_level: int = 4, min_level: int = 1, n_iter: int
                 w_cur, ref_patch, j_ic_raw, xyz_ref, au_c, av_c, vis, T, a, huber, cutoff,
                 float(fxl), float(fyl), float(cam.cx * scale), float(cam.cy * scale),
                 g=G, center=c, pattern=pattern, n_iter=n_iter, is_top=bool(is_top),
-                border=int(border), h_img=int(h), w_img=int(w))
+                border=int(border), h_img=int(h), w_img=int(w), projection=projection)
         else:
             T_f, a_f, energy, nt, iters = lm_level_loop(
                 lambda T_e, a_e: evaluate(T_e, a_e, huber, cutoff), T, a, n_iter, inverse)

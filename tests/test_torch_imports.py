@@ -177,7 +177,10 @@ def test_kernel_sources_are_in_the_package():
     assert jobs[0] is ctypes.POINTER(_cuda_build.WindowJob) and len(jobs) == 4
     assert all(len(sig) >= 9 for name, sig in _cuda_build._SIGNATURES.items()
                if name not in helpers | {"hso_extract_windows_jobs"})
-    assert len(_cuda_build._SIGNATURES) == 7 + len(helpers)
+    # eight kernel entries: K3 has a second one that takes the camera's model
+    with open(os.path.join(_cuda_build.CSRC_DIR, "coarse.cu")) as fh:
+        assert 'extern "C" int hso_coarse_level_ic_model(' in fh.read()
+    assert len(_cuda_build._SIGNATURES) == 8 + len(helpers)
     h1 = _cuda_build._source_hash()
     assert h1 == _cuda_build._source_hash() and len(h1) == 16
 
