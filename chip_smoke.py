@@ -64,6 +64,16 @@ reads its frames through the prefetching reader
 (``hso_tpu_torch.io.native_reader``), times the runner with and without it,
 and runs the live viewer (``live=8``).
 
+Last, the port's three measurement tools (the ``profilers`` phase): the
+stage ablation of the whole step (``tools/profile_ablate.py``, 16 frames:
+``full`` the unpatched step's bits, the stubbed names restored, every
+ablated variant fewer device kernels a frame), the sweep bisection
+(``tools/profile_update_seeds.py``, S = 1,536, each prefix a CUDA graph:
+stage 6 gives ``update_seeds``' bits, device kernels rise from prefix to
+prefix) and weak scaling of the point-sharded BA
+(``tools/bench_distributed_ba.py``, 1 rank over NCCL and 2 over gloo: held
+to the local solver, repeated bitwise).
+
 Phases (one JSON line each): ``device``, ``build`` (with the registers, spills
 and static shared memory of every kernel, and the launch plans of K1/K2, K4 and
 K6 in Python and in C), ``kernels`` (one line per
@@ -73,7 +83,8 @@ barrier, a cluster barrier, the reductions and the scalar steps of K3 and K5,
 and the latency floor they give), ``track``, ``frame``, ``fc_frame`` (one frame
 forced through the forward-compositional branch, card against CPU), ``seeds``,
 ``scan``, ``handler`` (its ``kernels`` lines first), ``pipelined``,
-``distributed_ba``, ``dataset``; then the ``{"kernels": [...]}`` summary, the card line and, last, the
+``distributed_ba``, ``dataset``, ``cameras``, ``profilers`` (three lines: ``ablation``,
+``sweep``, ``weak_scaling``); then the ``{"kernels": [...]}`` summary, the card line and, last, the
 ``{"ok": true, "device": {...}}`` line.  Any failed check raises.
 """
 
@@ -2693,6 +2704,91 @@ def dataset_phase(device, smi) -> tuple:
     return launches
 
 
+N_ABLATE = 16            #: frames of each ablation variant (1 repetition)
+S_SWEEP = 1536           #: seeds of the sweep bisection (the JAX script's size)
+N_SWEEP = 8              #: frames of each bisection row
+WS_DEVICES = (1, 2)      #: rank counts of the weak-scaling run (1 NCCL, 2 gloo)
+
+
+def profilers_phase(device, smi) -> dict:
+    """The three measurement tools on the card, counters set to 0 just before
+    and read just after: the stage ablation of the whole step
+    (``tools/profile_ablate.py``, ``N_ABLATE`` frames, 1 repetition): ``full``
+    gives the unpatched step's bits, the six names of ``fused_step`` are the
+    original objects afterwards, and every ablated variant launches fewer
+    device kernels a frame than ``full``; the sweep bisection
+    (``tools/profile_update_seeds.py``, S = ``S_SWEEP``, ``N_SWEEP`` frames,
+    each prefix captured in a CUDA graph): stage 6 gives ``update_seeds``'
+    matched pixels and depths bit for bit, on the tool's inputs and on the
+    checkpoint's seed table against a rendered frame, and the device kernels
+    of the prefixes rise from stage to stage; weak scaling of the
+    point-sharded BA (``tools/bench_distributed_ba.py``, ``WS_DEVICES``
+    ranks, 640 points a rank, K 12, 10 iterations): each solution held to the
+    local solver, repeated solves bitwise.  Returns the launches."""
+    from hso_tpu_torch.pipeline import fused_step
+    from hso_tpu_torch.tools import bench_distributed_ba, profile_ablate
+    from hso_tpu_torch.tools import profile_update_seeds as pus
+
+    originals = {k: getattr(fused_step, k) for k in profile_ablate.STAGE_NAMES}
+    zero_counters()
+    abl = profile_ablate.ablate(device, frames=N_ABLATE, reps=1)
+    sweep = pus.profile(S_SWEEP, N_SWEEP, reps=1, device=device)
+    launches = read_counters()
+
+    assert all(getattr(fused_step, k) is v for k, v in originals.items()), \
+        "profile_ablate left a name of fused_step patched"
+    assert abl["head"]["full_equals_unpatched"] and abl["head"]["names_restored"]
+    full, *ablated = abl["rows"]
+    for row in ablated:
+        assert row["device_kernels_per_frame"] < full["device_kernels_per_frame"], \
+            f"{row['variant']}: not fewer device kernels a frame than full"
+
+    stage6 = pus.Sweep(pus.sweep_inputs(S_SWEEP, 1), device).stage6_check()
+    cam, cfg = bench_camera(), Config()
+    st = checkpoint.frame_state_from_checkpoint(BOOT_NPZ, cam, cfg, device)
+    snap, exposure, T_prev, frame_count, seeds, px_err = (st[i] for i in (0, 4, 5, 7, 8, 11))
+    img = bench_scene(cam).render(trajectory(frame_count + 1)[frame_count])
+    stage6_ckpt = pus.stage6_vs_update_seeds(
+        seeds, snap["ring_T"], snap["ring_exp"], build_frame_pyramids(img, device=device)["pyr"],
+        T_prev, exposure, px_err, cam)
+    for what, chk in (("tool's inputs", stage6), ("checkpoint", stage6_ckpt)):
+        assert chk["px_bitwise"] and chk["z_meas_bitwise"] and chk["matched_within_meas_ok"], \
+            f"stage 6 is not update_seeds' bits ({what})"
+        chk.pop("tensors")
+    assert stage6_ckpt["n_matched"] > 30, stage6_ckpt
+    k = [row["device_kernels_per_frame"] for row in sweep["rows"]]
+    assert k[0] < k[1] < k[2] < k[3] == k[4] < k[5] < k[6] < k[7], \
+        f"device kernels per prefix do not rise: {k}"
+
+    ws = bench_distributed_ba.weak_scaling("cuda", WS_DEVICES, card=smi)
+    for row in ws["results"]:
+        assert row["agrees_with_local_solver"] and row["bitwise_second_run"], row
+    assert ws["results"][0]["backend"] == "nccl"
+
+    keep = ("host_ms_per_frame", "host_ms_marginal", "device_busy_ms_per_frame",
+            "device_busy_ms_marginal", "device_kernels_per_frame", "device_kernels_marginal",
+            "launches_per_frame")
+    emit("profilers", part="ablation", card=smi, frames=N_ABLATE,
+         full_equals_unpatched=True, names_restored=True,
+         rows=[{"variant": r["variant"], **{x: r[x] for x in keep}} for r in abl["rows"]])
+    keep = ("device_ms_per_frame", "device_ms_marginal", "eager_ms_per_frame",
+            "eager_ms_marginal", "device_kernels_per_frame", "device_busy_ms_per_frame",
+            "own_kernel_device_ms", "launches_per_frame")
+    emit("profilers", part="sweep", card=smi, s=S_SWEEP, frames=N_SWEEP,
+         graph_floor_ms_per_frame=sweep["head"]["graph_floor_ms_per_frame"],
+         stage6_vs_update_seeds=stage6, stage6_vs_update_seeds_checkpoint=stage6_ckpt,
+         rows=[{"row": r["row"], **{x: r[x] for x in keep}} for r in sweep["rows"]])
+    emit("profilers", part="weak_scaling", card=smi,
+         rows=[{x: r[x] for x in ("devices", "backend", "step_ms", "step_ms_1dev_same_problem",
+                                  "overhead_efficiency", "weak_scaling_efficiency", "chi2",
+                                  "vs_local_solver", "bitwise_second_run",
+                                  "collective_16_bytes")} for r in ws["results"]],
+         payload_bytes_per_lm_iteration=ws["collectives_measured"][
+             "payload_bytes_per_lm_iteration"],
+         projection=ws["projection"])
+    return launches
+
+
 def kernel_resources() -> dict:
     """Registers, stack, spills and static shared memory of K1 and K2 (each
     window-edge instance), K3 (its six instances: windows resident or not, by
@@ -2965,6 +3061,10 @@ def main() -> int:
     launches_dataset = dataset_phase(device, smi)
     launches_cameras, camera_shapes = cameras_phase(device, smi, results)
     handler_shapes = dict(handler_shapes, **camera_shapes)
+    launches_profilers = profilers_phase(device, smi)
+    for name in FRAME_KERNELS:
+        assert launches_profilers[name] > 0, f"kernel {name} was never launched by the profilers"
+
     add_latency_floors(results, latency)
 
     def launches_of(key):
@@ -3001,6 +3101,7 @@ def main() -> int:
             pipelined_phase_launches=launches_pipelined[name],
             dataset_phase_launches=launches_dataset[name],
             cameras_phase_launches=launches_cameras[name],
+            profilers_phase_launches=launches_profilers[name],
             **{k: r[k] for k in ("latency_floor_ms", "launch_ms", "bound_work_done_ms",
                                  "device_ms", "projection") if k in r}))
     print(json.dumps({"kernels": kernels}), flush=True)

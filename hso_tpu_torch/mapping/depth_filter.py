@@ -155,27 +155,26 @@ def init_seeds(seeds, det, kf_pyr, f_det, host_slot, batch_id, depth_mean, depth
     return new
 
 
-def update_seeds(seeds, host_T_w, host_exposure, cur_pyr, cur_sobel_x, cur_sobel_y, T_cur_w,
-                 cur_exposure, px_error_angle, cam, update_mask=None, n_levels: int = 3):
-    """One observation sweep: epipolar-match every visible seed in the current
-    frame and fuse the depth measurement.
-
-    ``host_T_w`` (R, 3, 4) is the ring of host keyframe poses (world→kf),
-    ``host_exposure`` (R,) their exposures; ``update_mask`` (S,) bool, if
-    given, restricts the sweep to a subset.  ``cur_sobel_x/y`` are accepted
-    for signature parity and not read (the gradient direction is sampled from
-    the packed windows).
-
-    Returns ``(seeds', stats)`` with ``stats`` = dict(n_visible, n_updated,
-    px_match (S, 2) level-0, matched (S,))."""
+def sweep_context(seeds, host_T_w, host_exposure, cur_pyr, T_cur_w, cur_exposure, cam,
+                  update_mask=None, n_levels: int = 3) -> dict:
+    """The inputs of one sweep as its stages read them (``SWEEP_STAGES``):
+    a dict each stage adds its results to."""
     dev = seeds["valid"].device
     f32 = torch.float32
-    T_cur_w = torch.as_tensor(T_cur_w, device=dev).to(f32)
-    cur_exposure = torch.as_tensor(cur_exposure, dtype=f32, device=dev).reshape(())
-    px_error_angle = torch.as_tensor(px_error_angle, dtype=f32, device=dev).reshape(())
+    return dict(seeds=seeds, host_T_w=host_T_w, host_exposure=host_exposure, cur_pyr=cur_pyr,
+                T_cur_w=torch.as_tensor(T_cur_w, device=dev).to(f32),
+                cur_exposure=torch.as_tensor(cur_exposure, dtype=f32, device=dev).reshape(()),
+                cam=cam, update_mask=update_mask, n_levels=n_levels)
+
+
+def _stage_geometry(c) -> dict:
+    """Visibility, the ±2σ epipolar endpoints at level 0, the affine warp of
+    the host patch and the search level."""
+    seeds, cam, n_levels = c["seeds"], c["cam"], c["n_levels"]
+    f32 = torch.float32
     host = seeds["host"].to(torch.int64)
-    T_h = host_T_w[host]
-    T_cur_ref = se3.mul(T_cur_w.expand(T_h.shape), se3.inv(T_h))
+    T_h = c["host_T_w"][host]
+    T_cur_ref = se3.mul(c["T_cur_w"].expand(T_h.shape), se3.inv(T_h))
 
     mu = seeds["mu"]
     sigma = torch.sqrt(torch.clamp_min(seeds["sigma2"], 0.0))
@@ -183,8 +182,8 @@ def update_seeds(seeds, host_T_w, host_exposure, cur_pyr, cur_sobel_x, cur_sobel
     p_cur = se3.apply(T_cur_ref, seeds["f"] / mu_safe[:, None])
     px_cur0 = cam.world2cam(p_cur)
     visible = seeds["valid"] & (p_cur[:, 2] > 0.0) & cam.is_in_frame(px_cur0, border=8)
-    if update_mask is not None:
-        visible = visible & update_mask
+    if c["update_mask"] is not None:
+        visible = visible & c["update_mask"]
 
     z_inv_min = mu + 2.0 * sigma               # max inverse depth (close)
     z_inv_max = torch.clamp_min(mu - 2.0 * sigma, 1e-8)
@@ -216,70 +215,147 @@ def update_seeds(seeds, host_T_w, host_exposure, cur_pyr, cur_sobel_x, cur_sobel
 
     A_ref_cur = inv2x2(A_cur_ref)
     A_ref_cur = torch.where(torch.isfinite(A_ref_cur), A_ref_cur, torch.zeros_like(A_ref_cur))
+    return dict(host=host, T_cur_ref=T_cur_ref, visible=visible, geom_ok=geom_ok,
+                px_close0=px_close0, px_far0=px_far0, A_cur_ref=A_cur_ref,
+                search_level=search_level, A_ref_cur=A_ref_cur)
+
+
+def _stage_ref_border(c) -> dict:
+    """The bordered reference patch warped from the stored host window, at
+    the current frame's exposure."""
+    seeds = c["seeds"]
     ref_border = warp_from_stored_windows(
         seeds["host_win"], seeds["host_anchor"], seeds["px"], seeds["level"],
-        A_ref_cur, search_level)
-    exposure_ratio = cur_exposure / torch.clamp_min(host_exposure[host], 1e-6)
+        c["A_ref_cur"], c["search_level"])
+    exposure_ratio = c["cur_exposure"] / torch.clamp_min(c["host_exposure"][c["host"]], 1e-6)
     ref_border = ref_border * exposure_ratio[:, None, None]
-    ref_patch = ref_border[:, 1:9, 1:9]
+    return dict(ref_border=ref_border, ref_patch=ref_border[:, 1:9, 1:9])
 
+
+def _stage_windows(c) -> dict:
+    """The segment at the search level, the direction gate, and the search
+    windows cut from each seed's own level (kernel K2)."""
+    seeds = c["seeds"]
     # ---- epipolar endpoints at the search level ----
-    level_scale = 2.0 ** search_level.to(f32)
-    px_close_l = px_close0 / level_scale[:, None]
-    px_far_l = px_far0 / level_scale[:, None]
+    level_scale = 2.0 ** c["search_level"].to(torch.float32)
+    px_close_l = c["px_close0"] / level_scale[:, None]
+    px_far_l = c["px_far0"] / level_scale[:, None]
     epl = px_close_l - px_far_l
     epl_len = torch.linalg.norm(epl, dim=-1)
-    geom_ok = geom_ok & torch.isfinite(epl_len) & (epl_len > 1e-6)
+    geom_ok = c["geom_ok"] & torch.isfinite(epl_len) & (epl_len > 1e-6)
 
     # edgelet/gradient direction gate: the segment must not run along the edge
-    grad_cur = torch.sum(A_cur_ref * seeds["grad"][:, None, :], dim=-1)
+    grad_cur = torch.sum(c["A_cur_ref"] * seeds["grad"][:, None, :], dim=-1)
     grad_cur = grad_cur / torch.clamp_min(
         torch.linalg.norm(grad_cur, dim=-1, keepdim=True), 1e-9)
     cosangle = torch.abs(torch.sum(grad_cur * epl, dim=-1) / torch.clamp_min(epl_len, 1e-9))
     dir_gate = torch.where(seeds["species"] != 0, cosangle >= 0.4,
                            torch.ones_like(geom_ok))
 
-    active = visible & geom_ok & dir_gate
+    active = c["visible"] & geom_ok & dir_gate
 
-    # ---- level-packed epipolar search + refinement (one pass, all levels) ----
+    # ---- level-packed epipolar search windows (one pass, all levels) ----
     mid = 0.5 * (px_far_l + px_close_l)
     windows, anchors, img_hw = pack_level_windows(
-        cur_pyr, search_level, mid[:, 0], mid[:, 1], EW, n_levels)
-    sr = epipolar_zmncc_search(windows, anchors, img_hw, ref_patch, px_far_l, px_close_l,
-                               active)
+        c["cur_pyr"], c["search_level"], mid[:, 0], mid[:, 1], EW, c["n_levels"])
+    return dict(level_scale=level_scale, px_close_l=px_close_l, px_far_l=px_far_l,
+                grad_cur=grad_cur, active=active, windows=windows, anchors=anchors,
+                img_hw=img_hw)
+
+
+def _stage_search(c) -> dict:
+    """The dense ZMNCC line search (kernel K6) and its loose gate."""
+    sr = epipolar_zmncc_search(c["windows"], c["anchors"], c["img_hw"], c["ref_patch"],
+                               c["px_far_l"], c["px_close_l"], c["active"])
     # loose pre-refinement gate: the dense score map is sampled at integer
     # patch positions, so a sub-pixel peak (esp. at coarse search levels)
     # reads well below its refined value; the strict NCC 0.8 gate applies
     # AFTER refinement below
-    good = active & sr["ok"] & (sr["score_best"] > 0.5)
+    good = c["active"] & sr["ok"] & (sr["score_best"] > 0.5)
+    return dict(search=sr, good=good)
 
-    # sub-pixel refinement straight from the integer ZMNCC peak — 2-D for
-    # corners, along-normal 1-D for edgelets, one fused LM loop — with the NCC
-    # and the gradient direction at the result
+
+def _stage_align(c) -> dict:
+    """Sub-pixel refinement straight from the integer ZMNCC peak — 2-D for
+    corners, along-normal 1-D for edgelets, one fused LM loop (kernel K4) —
+    with the NCC and the gradient direction at the result, and the strict
+    NCC gate."""
+    seeds, windows, anchors, img_hw = c["seeds"], c["windows"], c["anchors"], c["img_hw"]
     is_corner = seeds["species"] == 0
-    out8 = align_match(~is_corner, grad_cur, ref_border, sr["px_best"], good, windows,
-                       anchors[0], anchors[1], img_hw[0], img_hw[1],
+    out8 = align_match(~is_corner, c["grad_cur"], c["ref_border"], c["search"]["px_best"],
+                       c["good"], windows, anchors[0], anchors[1], img_hw[0], img_hw[1],
                        win=int(windows.shape[-1]), n_iter=10)
     px_ref_l = torch.stack([out8[ROW_U], out8[ROW_V]], dim=-1)
     refined_ok = out8[ROW_CONV] > 0.5
     score = out8[ROW_NCC]
-    meas_ok = good & refined_ok & (score > 0.8)
+    meas_ok = c["good"] & refined_ok & (score > 0.8)
+    return dict(align=out8, px_ref_l=px_ref_l, meas_ok=meas_ok)
+
+
+def _stage_triangulate(c) -> dict:
+    """The edgelet normal gate, the matched pixel at level 0 and the depth
+    triangulated from it."""
+    seeds, out8 = c["seeds"], c["align"]
     gn = torch.stack([out8[ROW_GX], out8[ROW_GY]], dim=-1)
     gn = gn / torch.clamp_min(torch.linalg.norm(gn, dim=-1, keepdim=True), 1e-9)
     normal_ok = torch.where(seeds["species"] == EDGELET,
-                            torch.sum(grad_cur * gn, dim=-1) > 0.7,
-                            torch.ones_like(meas_ok))
-    meas_ok = meas_ok & normal_ok
+                            torch.sum(c["grad_cur"] * gn, dim=-1) > 0.7,
+                            torch.ones_like(c["meas_ok"]))
+    meas_ok = c["meas_ok"] & normal_ok
 
-    px_match0 = px_ref_l * level_scale[:, None]
-    f_cur = cam.cam2world(px_match0)
-    z_meas, tri_ok = triangulate_depth(T_cur_ref, seeds["f"], f_cur)
+    px_match0 = c["px_ref_l"] * c["level_scale"][:, None]
+    f_cur = c["cam"].cam2world(px_match0)
+    z_meas, tri_ok = triangulate_depth(c["T_cur_ref"], seeds["f"], f_cur)
     meas_ok = meas_ok & tri_ok & (z_meas > 1e-6)
     z_meas = torch.where(meas_ok, z_meas, torch.zeros_like(z_meas))
+    return dict(meas_ok=meas_ok, px_match0=px_match0, f_cur=f_cur, z_meas=z_meas)
 
-    # ---- fusion: triangulation uncertainty of a one-pixel bearing error,
-    # then the inverse-variance update ----
-    T_ref_cur = se3.inv(T_cur_ref)
+
+#: the sweep's stages up to the fusion, in the order ``update_seeds`` runs
+#: them: (name, function of the context that returns what it adds).  A prefix
+#: of them is what ``tools/profile_update_seeds.py`` times.
+SWEEP_STAGES = (
+    ("geometry+warpmat", _stage_geometry),
+    ("+warp_ref_border", _stage_ref_border),
+    ("+pack_windows", _stage_windows),
+    ("+zmncc_search", _stage_search),
+    ("+align_mixed+ncc", _stage_align),
+    ("+grad+triang", _stage_triangulate),
+)
+
+
+def update_seeds(seeds, host_T_w, host_exposure, cur_pyr, cur_sobel_x, cur_sobel_y, T_cur_w,
+                 cur_exposure, px_error_angle, cam, update_mask=None, n_levels: int = 3):
+    """One observation sweep: epipolar-match every visible seed in the current
+    frame and fuse the depth measurement.
+
+    ``host_T_w`` (R, 3, 4) is the ring of host keyframe poses (world→kf),
+    ``host_exposure`` (R,) their exposures; ``update_mask`` (S,) bool, if
+    given, restricts the sweep to a subset.  ``cur_sobel_x/y`` are accepted
+    for signature parity and not read (the gradient direction is sampled from
+    the packed windows).
+
+    The stages of ``SWEEP_STAGES`` in turn, then the fusion.  Returns
+    ``(seeds', stats)`` with ``stats`` = dict(n_visible, n_updated,
+    px_match (S, 2) level-0, matched (S,))."""
+    c = sweep_context(seeds, host_T_w, host_exposure, cur_pyr, T_cur_w, cur_exposure, cam,
+                      update_mask, n_levels)
+    for _, stage in SWEEP_STAGES:
+        c.update(stage(c))
+    return _fuse(c, px_error_angle)
+
+
+def _fuse(c, px_error_angle):
+    """Triangulation uncertainty of a one-pixel bearing error, the
+    inverse-variance update, and the observation ring."""
+    seeds, T_cur_w = c["seeds"], c["T_cur_w"]
+    dev = seeds["valid"].device
+    f32 = torch.float32
+    px_error_angle = torch.as_tensor(px_error_angle, dtype=f32, device=dev).reshape(())
+    meas_ok, z_meas, f_cur = c["meas_ok"], c["z_meas"], c["f_cur"]
+    visible = c["visible"]
+
+    T_ref_cur = se3.inv(c["T_cur_ref"])
     t = T_ref_cur[..., :3, 3]
     fz = seeds["f"] * z_meas[:, None]
     a_vec = fz - t
@@ -329,7 +405,7 @@ def update_seeds(seeds, host_T_w, host_exposure, cur_pyr, cur_sobel_x, cur_sobel
     return out, {
         "n_visible": torch.sum(visible.to(torch.int32)),
         "n_updated": torch.sum(upd.to(torch.int32)),
-        "px_match": px_match0,
+        "px_match": c["px_match0"],
         "matched": upd,
     }
 
