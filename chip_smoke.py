@@ -28,6 +28,21 @@ its first 48 frames must give the same bits, and its first keyframe event is
 run again on the CPU from the card's inputs.  The ``kernels`` summary counts
 the launches of the scan.
 
+Since the step became one device program (``pipeline/step_graph.py``:
+two captured CUDA graphs replayed in turns, the FC/IC choice and the FC
+level LM as IF nodes made by ``csrc/graph_cond.cu``), the scan, the handler,
+the lag-1 loop, the dataset runner and the cameras run it through the graph;
+the ``track``, ``frame``, ``fc_frame`` and ``profilers`` phases run the
+eager step (``graph=False``), whose kernel calls they record, tally or
+reroute.  The wrappers count a launch where they are called, so for the
+graphed step they count its warm-up and the capture of its two instances,
+never a replay.  The ``graph`` phase (before ``scan``) runs 48 frames of the
+scan from the checkpoint, an FC frame first and eight keyframe events,
+through the graph and eagerly: every output of every frame, ``st`` and the
+seed table bitwise equal, a second graph run too, every step call under
+``torch.cuda.set_sync_debug_mode("error")``; ms a frame both ways, device
+kernels and busy ms a frame, capture seconds and pool bytes.
+
 Then the host pipeline users call, ``FrameHandler.add_image``
 (``hso_tpu_torch.pipeline.frame_handler``): from frame 0 of the bench
 trajectory through the bootstrap (KLT, two-view geometry) into tracking and
@@ -82,8 +97,11 @@ the windows in global memory), ``latency`` (the card's own figures for a block
 barrier, a cluster barrier, the reductions and the scalar steps of K3 and K5,
 and the latency floor they give), ``track``, ``frame``, ``fc_frame`` (one frame
 forced through the forward-compositional branch, card against CPU), ``seeds``,
-``scan``, ``handler`` (its ``kernels`` lines first), ``pipelined``,
-``distributed_ba``, ``dataset``, ``cameras``, ``profilers`` (three lines: ``ablation``,
+``graph``, ``scan``, ``handler`` (its ``kernels`` lines first), ``pipelined``,
+``distributed_ba``, ``dataset``, ``cameras``, then the profiles of the timed
+phases (``scan_profile``, ``graph_profile``, ``handler_profile``: after a
+``torch.profiler`` session the step graph's replays are slower on the host,
+so they run after every timed phase), ``profilers`` (three lines: ``ablation``,
 ``sweep``, ``weak_scaling``); then the ``{"kernels": [...]}`` summary, the card line and, last, the
 ``{"ok": true, "device": {...}}`` line.  Any failed check raises.
 """
@@ -94,6 +112,7 @@ import argparse
 import contextlib
 import ctypes
 import functools
+import gc
 import io
 import json
 import os
@@ -118,6 +137,7 @@ from hso_tpu_torch import testing  # noqa: E402
 from hso_tpu_torch.ops import align_cuda, epipolar, epipolar_cuda, window_cuda  # noqa: E402
 from hso_tpu_torch.ops.gatherless import clip_anchor  # noqa: E402
 from hso_tpu_torch.pipeline import keyframe, scan  # noqa: E402
+from hso_tpu_torch.pipeline.step_graph import StepGraph  # noqa: E402
 from hso_tpu_torch.pipeline.frame_handler import (RESULT_FAILURE, RESULT_FRAME,  # noqa: E402
                                                   RESULT_KEYFRAME, RESULT_NO_KEYFRAME,
                                                   STAGE_DEFAULT, STAGE_RELOC)
@@ -173,10 +193,22 @@ def read_counters() -> dict:
 
 
 def build_step(cam, cfg, device, whole: bool = False):
-    """The tracking step, or with ``whole`` the whole per-frame step; its grid
-    and observation slot count."""
-    return (scan.make_scan_step(cam, cfg, device, whole), scan.frame_grid(cam, cfg),
-            scan.obs_slots(cam, cfg))
+    """The eager tracking step, or with ``whole`` the eager whole per-frame
+    step (the phases that record, tally or reroute the kernels' calls a
+    frame); its grid and observation slot count."""
+    return (scan.make_scan_step(cam, cfg, device, whole, graph=False),
+            scan.frame_grid(cam, cfg), scan.obs_slots(cam, cfg))
+
+
+def clone_tree(tree):
+    """A copy of a tree of dicts, tuples, lists and tensors (other leaves as
+    they are): what a caller keeps of a step graph's output, which the graph
+    overwrites two frames later."""
+    if isinstance(tree, dict):
+        return {k: clone_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(clone_tree(v) for v in tree)
+    return tree.clone() if isinstance(tree, torch.Tensor) else tree
 
 
 # ------------------------------------------------------------------ timing
@@ -1249,11 +1281,13 @@ def to_device(tree, device):
     return tree.to(device) if isinstance(tree, torch.Tensor) else tree
 
 
-def run_scan_timed(step, carry, frames, cam, cfg, px_err, device, keep=(), mark=False):
+def run_scan_timed(step, carry, frames, cam, cfg, px_err, device, keep=(), mark=False,
+                   each=None):
     """``run_scan`` with every frame synchronised and timed on the host clock.
     Returns (result, ms per frame, {i: (step output, carry)} for the frames in
-    ``keep``).  With ``mark`` a tiny kernel after each frame marks its end in a
-    profile."""
+    ``keep``, copied: a step graph overwrites its outputs two frames later).
+    With ``mark`` a tiny kernel after each frame marks its end in a profile;
+    ``each(i, out, carry)`` runs after each frame's timing."""
     ms, kept = [], {}
     last = [0.0]
 
@@ -1262,7 +1296,9 @@ def run_scan_timed(step, carry, frames, cam, cfg, px_err, device, keep=(), mark=
             torch.cuda.synchronize(device)
         ms.append((time.perf_counter() - last[0]) * 1e3)
         if i in keep:
-            kept[i] = (out, carry_i)
+            kept[i] = (clone_tree(out), clone_tree(carry_i))
+        if each is not None:
+            each(i, out, carry_i)
         if mark:
             torch.cuda._sleep(1)
         last[0] = time.perf_counter()
@@ -1300,6 +1336,8 @@ def profile_scan(step, carry, frames, cam, cfg, px_err, device):
         doc[kind] = dict(frames=len(sel),
                          device_kernels_per_frame=sum(len(f) for f in sel) / len(sel),
                          device_busy_ms_per_frame=sum(sum(f) for f in sel) / 1e3 / len(sel))
+    doc["first_frames"] = [dict(device_kernels=len(f), device_busy_ms=sum(f) / 1e3)
+                           for f in per_frame[:2]]
     return doc
 
 
@@ -1360,8 +1398,8 @@ def record_keyframe_pack(kept, cam, cfg) -> list:
     return rec.calls
 
 
-def scan_phase(cam, cfg, scene, device, smi, results, n_scan=N_SCAN, n_repeat=N_SCAN_REPEAT,
-               n_profile=N_SCAN_PROFILE):
+def scan_phase(cam, cfg, scene, device, smi, results, later, n_scan=N_SCAN,
+               n_repeat=N_SCAN_REPEAT, n_profile=N_SCAN_PROFILE):
     """The evolving-map scan (the slice's own path) for ``n_scan`` frames from
     the checkpoint; counters set to 0 just before, read just after; call sites
     tallied by window edge.  Checks the gates, a second run of the first
@@ -1426,17 +1464,21 @@ def scan_phase(cam, cfg, scene, device, smi, results, n_scan=N_SCAN, n_repeat=N_
                    device, results)
     emit("kernels", name="pack_level_windows@seed", card=smi, **results["pack_level_windows@seed"])
     del kept
-    prof_scan = (profile_scan(scan_step, carry0, scan_frames[:n_profile], *scan_args)
-                 if device.type == "cuda" and n_profile else "not measured: no profile run")
+    if device.type == "cuda" and n_profile:
+        later.append(("scan", lambda: dict(device_per_frame=profile_scan(
+            scan_step, carry0, scan_frames[:n_profile], *scan_args))))
     ms_non = [m for m, k in zip(ms_scan, is_kf) if not k]
     ms_kf = [m for m, k in zip(ms_scan, is_kf) if k]
     emit("scan", card=smi, frames=n_scan, first_frame=start, keyframe_events=n_kf,
+         step=("StepGraph: two captured CUDA graphs replayed in turns"
+               if isinstance(scan_step, StepGraph) else "eager"),
          point_rows=int(carry0["st"]["light"].shape[0]),
          ms_per_frame_median_non_keyframe=statistics.median(ms_non),
          ms_per_frame_median_keyframe=statistics.median(ms_kf),
          ms_keyframe_extra_median=statistics.median(ms_kf) - statistics.median(ms_non),
          ms_first_frame=ms_scan[0], ms_scan_total=sum(ms_scan),
-         device_per_frame=prof_scan, launches=launches_scan,
+         first_frame_includes="the step's warm-up and capture",
+         launches=launches_scan,
          launches_per_frame={k: v / n_scan for k, v in launches_scan.items()},
          launches_by_window={k: {str(w): n for w, n in t.counts.items()}
                              for k, t in tallies_scan.items()},
@@ -1451,6 +1493,164 @@ def scan_phase(cam, cfg, scene, device, smi, results, n_scan=N_SCAN, n_repeat=N_
          keyframe_card_vs_cpu=kf_vs_cpu, cpu_launched_no_kernel=True)
 
     return launches_scan, tallies_scan
+
+
+# ------------------------------------------------------------------ graph phase
+N_GRAPH = 48             #: frames of the scan through the graph and eagerly (8 events)
+N_GRAPH_PROFILE = 12     #: frames of each profiled run (2 events)
+
+
+def scan_step_args(carry, img, px_err):
+    """The arguments ``run_scan`` gives the step for ``img`` from ``carry``."""
+    st = carry["st"]
+    return (img, carry["pyr"], carry["grad_mean"], carry["T"], carry["obs"],
+            carry["intensity"], carry["exposure"],
+            torch.eye(3, 4, dtype=torch.float32, device=carry["acc"].device),
+            {k: st[k] for k in scan.SNAP_FROM_ST}, carry["seeds"], px_err, carry["acc"])
+
+
+def leaves_with_paths(tree, path=""):
+    if isinstance(tree, dict):
+        return [x for k in tree for x in leaves_with_paths(tree[k], f"{path}.{k}")]
+    if isinstance(tree, (tuple, list)):
+        return [x for i, v in enumerate(tree) for x in leaves_with_paths(v, f"{path}[{i}]")]
+    return [(path, tree)]
+
+
+def tree_bits_differ(a, b) -> list:
+    """The paths of the leaves whose bits differ (NaN equal to NaN)."""
+    la, lb = leaves_with_paths(a), leaves_with_paths(b)
+    assert [p for p, _ in la] == [p for p, _ in lb], "the trees differ in structure"
+    bad = []
+    for (p, x), (_, y) in zip(la, lb):
+        if isinstance(x, torch.Tensor):
+            same = x.dtype == y.dtype and x.shape == y.shape and (
+                same_bits(x, y) if x.is_floating_point() else torch.equal(x, y))
+        else:
+            same = x == y
+        if not same:
+            bad.append(p)
+    return bad
+
+
+def graph_phase(cam, cfg, scene, device, smi, later) -> dict:
+    """The frame step as one device program: ``N_GRAPH`` frames of the scan
+    from the checkpoint through ``StepGraph`` (two captured CUDA graphs, the
+    FC/IC choice and the FC level LM as IF nodes) and through the eager step,
+    in the same call.  The first frame is made an FC frame (the carry's
+    previous gradient mean set far below, as the ``fc_frame`` phase does), the
+    others are IC frames, and every sixth frame has a keyframe event (the
+    eager keyframe body).  Counters set to 0 just before the capture, read
+    just after: the captured launches (both instances, both branches of each
+    IF node).  Checks: every output of every frame, the trajectory, ``st`` and
+    the seed table bitwise equal to the eager run's, and a second graph run
+    bitwise equal with every step call (staging and replay) under
+    ``torch.cuda.set_sync_debug_mode("error")``: no host wait (that run's ms
+    are reported apart).  Measures ms a frame both ways, warm-up and capture
+    seconds, the pools' bytes (and what a second step graph gives back when
+    it goes), and the nodes and kernel nodes captured into the IF bodies that
+    hold no IF node; leaves in ``later`` the profiles of ``N_GRAPH_PROFILE``
+    frames each way (device kernels and busy ms a frame, the FC frame and an
+    IC frame apart) and the same frames timed again after them: the
+    ``graph_profile`` line.  Returns the captured launches."""
+    carry0, meta = checkpoint.scan_state_from_checkpoint(BOOT_NPZ, cam, cfg, device)
+    carry0 = dict(carry0, grad_mean=torch.full((), -1e6, dtype=torch.float32, device=device))
+    start, px_err = meta["frame_count"], meta["px_error_angle"]
+    frames = torch.as_tensor(render_frames(scene, trajectory(start + N_GRAPH)[start:])).to(device)
+    scan_args = (cam, cfg, px_err, device)
+    eager = scan.make_scan_step(cam, cfg, device, graph=False)
+    sg = scan.make_scan_step(cam, cfg, device)
+    assert isinstance(sg, StepGraph)
+    args0 = scan_step_args(carry0, frames[0], px_err)
+    sg.warm_up(*args0)
+    zero_counters()
+    sg.capture(*args0)
+    captured = read_counters()
+    for name in FRAME_KERNELS:
+        assert captured[name] > 0, f"kernel {name} was not captured into the step's graph"
+
+    ref, used_fc = [], []
+
+    def keep_eager(i, out, carry_i):
+        ref.append(clone_tree(out))
+        used_fc.append(bool(out["used_fc"]))
+
+    res_e, ms_e, _ = run_scan_timed(eager, carry0, frames, *scan_args, each=keep_eager)
+    assert used_fc[0] and not any(used_fc[1:]), f"FC frames: {used_fc}"
+
+    def strict(*a):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return sg(*a)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    runs = []
+    for step in (sg, strict):       # timed as it is; then every call under "error"
+        differ = {}
+
+        def hold(i, out, carry_i):
+            bad = tree_bits_differ(out, ref[i])
+            if bad:
+                differ[i] = bad
+
+        res_g, ms_g, _ = run_scan_timed(step, carry0, frames, *scan_args, each=hold)
+        assert not differ, f"graph against eager: frames {sorted(differ)} differ in " \
+                           f"{differ[min(differ)][:8]}"
+        # (the carry's step outputs are held now: the next run overwrites them)
+        for key in ("traj", "chk", "n_inliers", "kf_stats", "carry"):
+            bad = tree_bits_differ(res_g[key], res_e[key])
+            assert not bad, f"graph against eager: {key} differs in {bad[:8]}"
+        runs.append((res_g["traj"], ms_g))
+    n_kf = len(res_e["kf_stats"])
+    assert n_kf == N_GRAPH // scan.KF_EVERY
+
+    def by_kind(ms):
+        non = [m for i, m in enumerate(ms) if not scan.is_keyframe(i)]
+        kf = [m for i, m in enumerate(ms) if scan.is_keyframe(i)]
+        return dict(fc_frame=ms[0], ic_frames_median=statistics.median(non[1:]),
+                    keyframe_median=statistics.median(kf) if kf else None,
+                    all_median=statistics.median(ms))
+
+    def profiled():
+        doc = {name: profile_scan(step, carry0, frames[:N_GRAPH_PROFILE], *scan_args)
+               for name, step in (("graph", sg), ("eager", eager))}
+        # the same frames timed again after the profiles: what a profiler
+        # session leaves on the host time of later step calls
+        doc["ms_per_frame_after_a_profile"] = {
+            name: by_kind(run_scan_timed(step, carry0, frames[:N_GRAPH_PROFILE],
+                                         *scan_args)[1])
+            for name, step in (("graph", sg), ("eager", eager))}
+        return doc
+
+    later.append(("graph", profiled))
+
+    # what a StepGraph holds on the card, and that it gives it back when it goes
+    pool = dict(first=sg.pool_bytes)
+    gc.collect()
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved(device)
+    again = scan.make_scan_step(cam, cfg, device)
+    again.capture(*args0)
+    pool.update(second=again.pool_bytes,
+                reserved_with_it=torch.cuda.memory_reserved(device) - reserved)
+    del again
+    gc.collect()
+    torch.cuda.empty_cache()
+    pool["reserved_after_it_went"] = torch.cuda.memory_reserved(device) - reserved
+    emit("graph", card=smi, frames=N_GRAPH, first_frame=start, keyframe_events=n_kf,
+         fc_frames=[i for i, f in enumerate(used_fc) if f],
+         torch=torch.__version__, conditional_nodes="csrc/graph_cond.cu (IF nodes made "
+         "through the CUDA runtime: this torch build has no conditional-node API)",
+         ms_per_frame=dict(eager=by_kind(ms_e), graph=by_kind(runs[0][1]),
+                           graph_second_run_sync_debug_error=by_kind(runs[1][1])),
+         warm_up_seconds=sg.warm_up_seconds, capture_seconds=sg.capture_seconds,
+         pool_bytes=pool, leaf_body_nodes=sg.nodes[0], leaf_body_kernel_nodes=sg.nodes[1],
+         captured_launches_both_instances=captured,
+         captured_launches_per_instance={k: v / 2 for k, v in captured.items()},
+         every_output_bitwise_equal_to_eager=True, second_run_bitwise_equal=True,
+         host_waits_in_step_calls=0)
+    return captured
 
 
 # ------------------------------------------------------------------ handler phase
@@ -1477,8 +1677,9 @@ HANDLER_CONTEXTS = {
 class SiteTally:
     """Counts the calls of the kernel dispatchers at their call sites by label
     ``context:site:shape`` (the context is the innermost handler method of
-    ``HANDLER_CONTEXTS`` that is running) and keeps the arguments of the first
-    ``keep`` calls of every label."""
+    ``HANDLER_CONTEXTS`` that is running; the step's calls are its graph's
+    warm-up and captures) and keeps the arguments of the first ``keep`` calls
+    of every label that are not captured into a graph."""
 
     def __init__(self, keep: int = 16):
         self.ctx = ["-"]
@@ -1494,7 +1695,9 @@ class SiteTally:
                 d = self.counts.setdefault(kernel, {})
                 d[label] = d.get(label, 0) + 1
                 kept = self.calls.setdefault((kernel, label), [])
-                if len(kept) < self.keep:
+                # a call captured into a graph has no data yet: counted, not kept
+                capturing = torch.cuda.is_available() and torch.cuda.is_current_stream_capturing()
+                if len(kept) < self.keep and not capturing:
                     kept.append((args, kw))
             return fn(*args, **kw)
         return wrapped
@@ -1911,19 +2114,21 @@ HANDLER_SHAPES = {
 }
 
 
-def handler_phase(cam, cfg, scene, device, smi, results):
+def handler_phase(cam, cfg, scene, device, smi, results, later):
     """``FrameHandler.add_image``, the entry point users call, on the card.
 
     Live: a fresh handler from frame 0 of the bench trajectory through the
     bootstrap into DEFAULT and three keyframe events it decides itself;
     counters set to 0 just before, read just after; gates: no failure, ≥ 50
-    inliers a frame, ATE < 0.10 m; the first ``N_LIVE_REPEAT`` frames again,
-    bit for bit; the bootstrap again on the CPU.  Then one black frame and
-    recovery within ``N_RECOVER`` frames.  Then relocalization by the map
+    inliers a frame, ATE < 0.10 m; the first ``N_LIVE_REPEAT`` frames again
+    with the eager step (``graph=False``), bit for bit; the bootstrap again on
+    the CPU.  Then one black frame and recovery within ``N_RECOVER`` frames.
+    Then relocalization by the map
     (the checkpoint resumed with no keyframe pyramid) and a seed rescue with
     its pose refinement on that frame.  Then the resumed host loop:
-    ms a frame with and without an event, host syncs a frame, device kernels a
-    frame.  The new call shapes of the kernels (``HANDLER_SHAPES``) are held
+    ms a frame with and without an event, host syncs a frame (its device
+    kernels a frame are profiled later: the ``handler_profile`` line).  The
+    new call shapes of the kernels (``HANDLER_SHAPES``) are held
     against their plain versions on the calls recorded here.  Returns
     (launches of the live run, {results key: launches at that shape})."""
     from hso_tpu_torch.pipeline.frame_handler import FrameHandler
@@ -1960,12 +2165,13 @@ def handler_phase(cam, cfg, scene, device, smi, results):
     ate_all = handler_ate(live + recover[back:], gt[:N_LIVE] + gt[N_LIVE + 1 + back:])
     assert ate_all < 0.10, f"handler after recovery: ATE RMSE {ate_all:.4f} m"
 
-    # the first N_LIVE_REPEAT frames again: the same bits
-    again = drive_handler(FrameHandler(cam, cfg, device=device), frames[:N_LIVE_REPEAT], device)
+    # the first N_LIVE_REPEAT frames again with the eager step: the same bits
+    again = drive_handler(FrameHandler(cam, cfg, device=device, graph=False),
+                          frames[:N_LIVE_REPEAT], device)
     for k, (a, b) in enumerate(zip(live, again)):
         for key in ("status", "n_matches", "n_inliers", "points"):
-            assert a[key] == b[key], f"handler, second run: frame {k} {key}"
-        assert np.array_equal(a["T"], b["T"]), f"handler, second run: frame {k} pose"
+            assert a[key] == b[key], f"handler, eager second run: frame {k} {key}"
+        assert np.array_equal(a["T"], b["T"]), f"handler, eager second run: frame {k} pose"
 
     # the bootstrap on the CPU from the same frames
     before = read_counters()
@@ -2032,16 +2238,23 @@ def handler_phase(cam, cfg, scene, device, smi, results):
     plain_frames = [c for c in counted if c[0] != RESULT_KEYFRAME]
     assert plain_frames, "every counted frame had a keyframe event"
     for _, sites, waits in plain_frames if device.type == "cuda" else ():
-        # the step's FC/IC choice and the one copy of `packed`
-        assert sum(sites.values()) == 2 and waits == 0, \
+        # the one copy of `packed` (the FC/IC choice is an IF node of the graph)
+        assert sum(sites.values()) == 1 and waits == 0, \
             f"a frame without a keyframe event waited on the device at {sites}, {waits}"
     sync_sites = {}
     for _, sites, _ in counted:
         for where, n in sites.items():
             sync_sites[where] = sync_sites.get(where, 0) + n
-    prof = (profile_handler(hr, frames_r[k:k + N_HOST_PROFILE], device, z_start + k)
-            if device.type == "cuda" else "not measured: no profile run")
-    assert hr.stage == STAGE_DEFAULT
+    k_prof = k
+
+    def handler_profile():
+        doc = dict(device_per_frame=profile_handler(
+            hr, frames_r[k_prof:k_prof + N_HOST_PROFILE], device, z_start + k_prof))
+        assert hr.stage == STAGE_DEFAULT
+        return doc
+
+    if device.type == "cuda":
+        later.append(("handler", handler_profile))
     ms_non = [r["ms"] for r in timed if r["status"] != RESULT_KEYFRAME]
     ms_kf = [r["ms"] for r in timed if r["status"] == RESULT_KEYFRAME]
     seconds = sum(r["ms"] for r in timed) / 1e3
@@ -2064,6 +2277,7 @@ def handler_phase(cam, cfg, scene, device, smi, results):
          recover_statuses=[r["status"] for r in recover],
          seed_rescue_launches={k_: tally.launches(k_, "seed_rescue:") for k_ in COUNTERS},
          second_run_frames=N_LIVE_REPEAT, second_run_bitwise_equal=True,
+         second_run_step="eager (graph=False): the graph's bits",
          bootstrap_card_vs_cpu=dict(frames=i_boot + 1, points=boot_cpu[-1]["points"],
                                     t21_max_abs=d_t21),
          reloc_by_map=dict(status=by_map[0]["status"], n_inliers=by_map[0]["n_inliers"],
@@ -2084,7 +2298,7 @@ def handler_phase(cam, cfg, scene, device, smi, results):
                         copy_waits_a_frame=[c[2] for c in counted],
                         counted_statuses=[c[0] for c in counted],
                         stream_syncs_by_line=sync_sites,
-                        host_ms_by_part=host_parts, device_per_frame=prof),
+                        host_ms_by_part=host_parts),
          launches=launches_live,
          launches_by_site={name: dict(sorted(c.items())) for name, c in tally.counts.items()})
     return launches_live, shape_launches
@@ -2094,15 +2308,13 @@ def handler_phase(cam, cfg, scene, device, smi, results):
 N_PIPE = 32              #: frames of each timed loop after the synchronous warm-up
 
 
-def pipelined_run(cam, cfg, frames, z_start, device, pipelined=True, count=False,
-                  on_timed=None):
+def pipelined_run(cam, cfg, frames, z_start, device, pipelined=True, count=False):
     """A handler resumed from the checkpoint (the handler phase's resumed
     state), warmed with ``add_image`` through three keyframe events (at most
     ``N_HOST_WARM`` frames), then ``N_PIPE`` frames through the lag-1 loop
     (``add_image_pipelined``, then ``flush``) or with ``pipelined=False``
     through ``add_image``, timed as a whole between two device
-    synchronisations.  ``on_timed`` runs just before the timed frames (the
-    counters set to 0).  With ``count`` each lag-1 call runs with its host
+    synchronisations.  With ``count`` each lag-1 call runs with its host
     syncs counted.  Returns the handler, the timed frames' results, their
     seconds, the warm frames, the seed tables dispatched, the events (index
     of the next dispatch, batch, the table the event left) and the counts."""
@@ -2128,8 +2340,6 @@ def pipelined_run(cam, cfg, frames, z_start, device, pipelined=True, count=False
         return res
 
     h._dispatch_default, h._finalize_pipelined = rec_dispatch, rec_finalize
-    if on_timed is not None:
-        on_timed()
     sync(device)
     t0 = time.perf_counter()
     results = []
@@ -2157,10 +2367,11 @@ def pipelined_run(cam, cfg, frames, z_start, device, pipelined=True, count=False
 def pipelined_phase(cam, cfg, scene, device, smi) -> dict:
     """The lag-1 host loop users call, ``FrameHandler.add_image_pipelined``
     and ``flush``, at full width from the handler phase's resumed state.
-    Runs in turns: lag-1 (counters set to 0 just before its timed frames,
-    read just after: each of K1–K6 launched), synchronous, lag-1, synchronous,
-    and a third lag-1 run with its host syncs counted a call (2 where the
-    finalised frame had no event: the step's FC/IC choice and the previous
+    Runs in turns: lag-1 (counters set to 0 just before its handler is made,
+    read after its timed frames: its warm-up, the capture of its step graph and
+    the frames; each of K1–K6 launched), synchronous, lag-1, synchronous,
+    and a third lag-1 run with its host syncs counted a call (1 where the
+    finalised frame had no event: the previous
     frame's ``packed`` copy, asserted).  Gates: one result per frame in order,
     ≥ 50 inliers a frame, ATE < 0.10 m, the lag-1 runs bit for bit alike, and
     after every event the next dispatched seed table holds that event's new
@@ -2169,8 +2380,8 @@ def pipelined_phase(cam, cfg, scene, device, smi) -> dict:
     gt = trajectory(z_start + N_HOST_WARM + N_PIPE)[z_start:]
     frames = render_frames(scene, gt)
     runs = {}
-    runs["pipelined_1"] = pipelined_run(cam, cfg, frames, z_start, device,
-                                        on_timed=zero_counters)
+    zero_counters()
+    runs["pipelined_1"] = pipelined_run(cam, cfg, frames, z_start, device)
     launches = read_counters()
     for name in FRAME_KERNELS if device.type == "cuda" else ():
         assert launches[name] > 0, f"kernel {name} was never launched by the lag-1 loop"
@@ -2218,7 +2429,8 @@ def pipelined_phase(cam, cfg, scene, device, smi) -> dict:
     plain = [c for c in counted if c[0] == RESULT_FRAME]
     assert plain, "no counted call finalised a frame without an event"
     for _, n_sync, waits, sites in plain if device.type == "cuda" else ():
-        assert n_sync + waits == 2 and waits == 1, \
+        # the previous frame's `packed` copy only (the step is a graph)
+        assert n_sync + waits == 1 and waits == 1, \
             f"lag-1 loop: a call without an event waited at {sites}, {waits} copy waits"
     emit("pipelined", card=smi, first_frame=z_start, runs=summary, launches=launches,
          second_run_bitwise_equal=True,
@@ -2384,7 +2596,7 @@ def cameras_phase(device, smi, results) -> tuple:
     after: frame 0 through the bootstrap and ≥ 1 keyframe event the handler
     decides; gates: no failure, ATE < 0.10 m, ≥ 50 inliers a frame from the
     bootstrap on, K3 launched; then ``N_CAM_COUNTED`` frames with their host
-    syncs counted (2 a frame without an event, asserted on the card), the
+    syncs counted (1 a frame without an event, asserted on the card), the
     first ``N_CAM_REPEAT`` frames again bit for bit, and the frames through
     the bootstrap on the CPU from the same inputs (statuses and points equal,
     poses to 1e-5, the ``handler`` phase's tolerance).  K3 is held against its
@@ -2437,7 +2649,7 @@ def cameras_phase(device, smi, results) -> tuple:
         plain_frames = [c for c in counted if c[0] != RESULT_KEYFRAME]
         assert plain_frames, f"{name}: every counted frame had a keyframe event"
         for _, sites, waits in plain_frames if device.type == "cuda" else ():
-            assert sum(sites.values()) == 2 and waits == 0, \
+            assert sum(sites.values()) == 1 and waits == 0, \
                 f"{name}: a frame without a keyframe event waited at {sites}, {waits}"
 
         # the first frames again: the same bits
@@ -2502,7 +2714,7 @@ def dataset_phase(device, smi) -> tuple:
     handler's columns.  Counters set to 0 just before that run, read just
     after.  A second run gives the same keyframes and positions bit for bit;
     its last ``N_DATASET_COUNTED`` frames run with tracing off and their host
-    syncs are counted (2 a frame without an event, asserted).  Then
+    syncs are counted (1 a frame without an event, asserted).  Then
     ``N_PHOTO`` frames through the synthetic camera's response, vignette and
     exposure walk with ``photo=1`` (solve every ``PHOTO_SOLVE_EVERY``):
     calibrated, ``rms_after < rms_before``, no failure, ATE under the gate,
@@ -2593,7 +2805,7 @@ def dataset_phase(device, smi) -> tuple:
         assert plain, "every counted frame had a keyframe event"
         if device.type == "cuda":
             for _, n_sync, waits, sites in plain:
-                assert n_sync == 2 and waits == 0, \
+                assert n_sync == 1 and waits == 0, \
                     f"dataset: a frame without a keyframe event waited at {sites}, {waits}"
 
         # the runner's loop without and with the prefetching reader (no trace):
@@ -2658,7 +2870,7 @@ def dataset_phase(device, smi) -> tuple:
         if device.type == "cuda":
             for (status, n_sync, waits, sites), n_solve in zip(counted_p, solves):
                 if status == RESULT_FRAME and n_solve == 0:
-                    assert n_sync == 3 and waits == 0, \
+                    assert n_sync == 2 and waits == 0, \
                         f"photo=1: a frame without an event or a solve waited at {sites}"
         assert RESULT_FAILURE not in statuses_p, statuses_p
         assert vp.photo.calibrated, f"the calibrator did not calibrate in {N_PHOTO} frames"
@@ -2710,6 +2922,60 @@ N_SWEEP = 8              #: frames of each bisection row
 WS_DEVICES = (1, 2)      #: rank counts of the weak-scaling run (1 NCCL, 2 gloo)
 
 
+def sweep_kernels(device, s_values=(S_SWEEP, 151)) -> dict:
+    """K2, K4 and K6 on the calls the sweep makes at S seed slots (the sweep
+    tool's inputs, ``tools/profile_update_seeds.py``; S = 1,536 the JAX
+    script's size, 151 the checkpoint's live count): each wrapper's call rate
+    (``ms``), its device ms from a replayed CUDA graph, its plain version's
+    call rate; for K2 the advanced-indexing gather's, in a graph and as a
+    call rate, and its bound."""
+    from hso_tpu_torch.tools import profile_update_seeds as pus
+
+    doc = {}
+    for s in s_values:
+        sw = pus.Sweep(pus.sweep_inputs(s, 1), device)
+        rec = {"k2": Recorder(window_cuda.pack_level_windows_gather),
+               "k4": Recorder(align_cuda.align_match),
+               "k6": Recorder(epipolar_cuda.zmncc_line_scores)}
+        with patched([(epipolar, "pack_level_windows_gather", rec["k2"]),
+                      (depth_filter, "align_match", rec["k4"]),
+                      (epipolar, "zmncc_line_scores", rec["k6"])]):
+            sw.whole(sw.seeds["mu"], sw.imgs[0])
+        for k, r in rec.items():
+            assert len(r.calls) == 1, f"S={s}: {len(r.calls)} {k} calls in one sweep"
+        (pyr, level, au, av, win, n_levels), _ = rec["k2"].calls[0]
+        pyr = [p.contiguous() for p in pyr[:n_levels]]
+        stack = level_stack(pyr, n_levels, device)
+        b_ms, b_by = bound(2 * s * win * win * 4 + 3 * s * 4, 0)
+        a4, kw4 = rec["k4"].calls[0]
+        a6, kw6 = rec["k6"].calls[0]
+        doc[f"S{s}"] = dict(
+            pack_level_windows=dict(
+                shape=f"S={s} win={win} levels={n_levels}",
+                ms=time_ms(lambda: window_cuda.pack_level_windows_cuda(
+                    pyr, level, au, av, win, n_levels), device),
+                device_ms=graph_ms(time_ms, lambda: window_cuda.pack_level_windows_prepare(
+                    pyr, level, au, av, win, n_levels), device),
+                plain_ms=time_ms(lambda: window_cuda.pack_level_windows_plain(
+                    pyr, level, au, av, win, n_levels), device, inner=2),
+                library_device_ms=gather_ms(stack, level, au, av, win, device, graph=True),
+                library_ms=gather_ms(stack, level, au, av, win, device),
+                bound_ms=b_ms, bound_by=b_by),
+            align_match=dict(
+                ms=time_ms(lambda: align_cuda.align_match_cuda(*a4, **kw4), device),
+                device_ms=graph_ms(time_ms, lambda: align_cuda.align_match_prepare(
+                    *a4, **kw4), device),
+                plain_ms=time_ms(lambda: align_cuda.align_match_plain(*a4, **kw4), device,
+                                 inner=2)),
+            zmncc_line_scores=dict(
+                ms=time_ms(lambda: epipolar_cuda.zmncc_line_scores_cuda(*a6, **kw6), device),
+                device_ms=graph_ms(time_ms, lambda: epipolar_cuda.zmncc_line_scores_prepare(
+                    *a6, **kw6), device),
+                plain_ms=time_ms(lambda: epipolar_cuda.zmncc_line_scores_plain(*a6, **kw6),
+                                 device, inner=2)))
+    return doc
+
+
 def profilers_phase(device, smi) -> dict:
     """The three measurement tools on the card, counters set to 0 just before
     and read just after: the stage ablation of the whole step
@@ -2724,7 +2990,9 @@ def profilers_phase(device, smi) -> dict:
     of the prefixes rise from stage to stage; weak scaling of the
     point-sharded BA (``tools/bench_distributed_ba.py``, ``WS_DEVICES``
     ranks, 640 points a rank, K 12, 10 iterations): each solution held to the
-    local solver, repeated solves bitwise.  Returns the launches."""
+    local solver, repeated solves bitwise.  The sweep line also times K2, K4
+    and K6 on the sweep's own calls at S = 1,536 and 151 (``sweep_kernels``).
+    Returns the launches."""
     from hso_tpu_torch.pipeline import fused_step
     from hso_tpu_torch.tools import bench_distributed_ba, profile_ablate
     from hso_tpu_torch.tools import profile_update_seeds as pus
@@ -2775,6 +3043,7 @@ def profilers_phase(device, smi) -> dict:
             "eager_ms_marginal", "device_kernels_per_frame", "device_busy_ms_per_frame",
             "own_kernel_device_ms", "launches_per_frame")
     emit("profilers", part="sweep", card=smi, s=S_SWEEP, frames=N_SWEEP,
+         kernels_at_s=sweep_kernels(device),
          graph_floor_ms_per_frame=sweep["head"]["graph_floor_ms_per_frame"],
          stage6_vs_update_seeds=stage6, stage6_vs_update_seeds_checkpoint=stage6_ckpt,
          rows=[{"row": r["row"], **{x: r[x] for x in keep}} for r in sweep["rows"]])
@@ -3054,13 +3323,20 @@ def main() -> int:
          harvest_rows=list(life_k["harvest_rows"].shape),
          harvest_flag_flips_vs_cpu=flag_flips, mu_vs_cpu=d_mu_s, launches=launches_s)
 
-    launches_scan, tallies_scan = scan_phase(cam, cfg, scene, device, smi, results)
-    launches_handler, handler_shapes = handler_phase(cam, cfg, scene, device, smi, results)
+    # profiles run last: after a torch.profiler session the step graph's
+    # replays are slower on the host (PERF.md §7), so no phase is timed after one
+    later = []
+    launches_graph = graph_phase(cam, cfg, scene, device, smi, later)
+    launches_scan, tallies_scan = scan_phase(cam, cfg, scene, device, smi, results, later)
+    launches_handler, handler_shapes = handler_phase(cam, cfg, scene, device, smi, results,
+                                                     later)
     launches_pipelined = pipelined_phase(cam, cfg, scene, device, smi)
     distributed_phase(smi)
     launches_dataset = dataset_phase(device, smi)
     launches_cameras, camera_shapes = cameras_phase(device, smi, results)
     handler_shapes = dict(handler_shapes, **camera_shapes)
+    for name, profile in later:
+        emit(f"{name}_profile", card=smi, **profile())
     launches_profilers = profilers_phase(device, smi)
     for name in FRAME_KERNELS:
         assert launches_profilers[name] > 0, f"kernel {name} was never launched by the profilers"
@@ -3097,6 +3373,10 @@ def main() -> int:
             bound_by=r["bound_by"], library_ms=r["library_ms"],
             launches_in=("cameras" if key in camera_shapes else
                          "handler" if key in handler_shapes else "scan"),
+            launches_are=("dispatcher calls in the scan: eager launches (keyframe body), "
+                          "the step graph's warm-up and the capture of its two instances; "
+                          "a replay launches without counting"),
+            graph_phase_captured_launches=launches_graph[name],
             handler_phase_launches=launches_handler[name],
             pipelined_phase_launches=launches_pipelined[name],
             dataset_phase_launches=launches_dataset[name],

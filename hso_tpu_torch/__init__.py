@@ -28,7 +28,10 @@ and the runner ``python -m hso_tpu_torch.run_dataset``.  And the rest: the
 lag-1 host loop (``FrameHandler.add_image_pipelined``/``flush``) and the
 point-sharded BA over ``torch.distributed``
 (:mod:`hso_tpu_torch.ba.distributed`).  Every module of the JAX package has
-its counterpart here.
+its counterpart here.  On the card the step runs as one device program
+(:class:`hso_tpu_torch.pipeline.step_graph.StepGraph`: CUDA graphs whose
+FC/IC choice and FC level LM are IF nodes), the counterpart of the JAX
+step's ``jit``.
 """
 
 __version__ = "0.1.0"

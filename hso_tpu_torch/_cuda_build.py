@@ -173,6 +173,9 @@ _SIGNATURES = {
     "hso_window_launch_plan": [_I, _I, _I, ctypes.c_ulonglong, ctypes.POINTER(_I * 3)],
     "hso_coarse_plan_override": [_I, _I],
     "hso_probe_latency": [_I, _I, _I, _I, _P, _P],
+    "hso_if_node_begin": [_P, _P, _I, _P],
+    "hso_if_node_end": [_P, ctypes.POINTER(ctypes.c_longlong),
+                        ctypes.POINTER(ctypes.c_longlong)],
     "hso_probe_tma": [_I, _P, _I, _I, _P, _P],
 }
 

@@ -14,9 +14,14 @@ Protocol, as the JAX package's ``bench.py`` has it:
     ``artifacts/bench_boot.npz`` (a snapshot of the live pipeline at frame 55);
   * the frames are the box scene rendered along the benchmark's trajectory,
     staged on the device before timing;
-  * one untimed warm pass over the first 12 frames (kernel build, allocator,
-    library handles), then 2 timed scans from the same start state, each
-    ending in a device synchronise inside the timed window;
+  * on the card the step is a CUDA graph
+    (:class:`hso_tpu_torch.pipeline.step_graph.StepGraph`, the counterpart
+    of the JAX step's ``jit``), captured in the warm pass, as the JAX bench's
+    warm pass compiles;
+  * one untimed warm pass over the first 12 frames (kernel build, the step
+    graph's warm-up and capture, allocator, library handles), then 2 timed
+    scans from the same start state, each ending in a device synchronise
+    inside the timed window;
   * the trajectory is checked against ground truth with scale-aligned ATE:
     above 0.10 m the pipeline is mis-tracking, and the bench prints
     ``"value": null`` and exits 1.
@@ -55,6 +60,7 @@ from hso_tpu_torch.cameras import PinholeCamera
 from hso_tpu_torch.config import Config
 from hso_tpu_torch.math import se3np
 from hso_tpu_torch.pipeline import scan
+from hso_tpu_torch.pipeline.step_graph import StepGraph
 from hso_tpu_torch.pipeline.frame_handler import RESULT_KEYFRAME, STAGE_DEFAULT, FrameHandler
 from hso_tpu_torch.utils.checkpoint import load_checkpoint, scan_state_from_checkpoint
 from hso_tpu_torch.utils.evaluate import ate
@@ -208,6 +214,7 @@ def main(argv=None) -> int:
            f"({host_s['timed_keyframes']} keyframe events timed)")
     doc = {"metric": "pipeline_frames_per_s", "unit": "frames/s", "device": str(device),
            "card": card, "frames": N_SCAN, "repeats": N_REPEATS,
+           "frame_step": "cuda graph" if isinstance(step, StepGraph) else "eager",
            "keyframe_events": sum(scan.is_keyframe(i) for i in range(N_SCAN)),
            "scan_seconds": times}
     if not (np.isfinite(chk) and max(rmse, host["ate"], host_s["ate"]) < ATE_GATE_M):

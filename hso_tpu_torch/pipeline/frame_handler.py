@@ -17,9 +17,14 @@ set), per-point patch-source refresh at keyframes, essential-matrix vs
 homography bootstrap, relocalization against the closest keyframe (coarse
 tracker) and by the map (memoized windows), and ``reset_all``.
 
-Host syncs on the card.  A frame without a keyframe event waits on the
-device twice: the step's FC/IC choice and the one copy of the 24-float
-``packed`` vector.  A sparse frame adds the copy of the per-slot results.
+Host syncs on the card.  The step is captured in CUDA graphs
+(:class:`~hso_tpu_torch.pipeline.step_graph.StepGraph`; ``graph=False`` runs
+it eagerly), so its FC/IC choice is made on the device and a frame without a
+keyframe event waits on the device once: the one copy of the 24-float
+``packed`` vector (the eager step adds its FC/IC choice, and on an FC frame
+each LM iteration).  The graph's outputs live two dispatches; the frame's
+pyramid, the seed table and the counters are copied out of them.  A sparse
+frame adds the copy of the per-slot results.
 Host data goes to the device as non-blocking copies from pinned memory, and
 device scalars are made on the device, so neither waits.  A keyframe event
 starts its copies back (``kf_pack``, the seed harvest, the patch-source
@@ -30,10 +35,10 @@ Online photometric calibration (``cfg.photometric_calib``,
 :mod:`hso_tpu_torch.photometric`) linearises each frame on the device before
 the step (no wait; the raw frame passes unchanged until the first solve is
 adopted) and samples the frame's matched points from the raw image after it:
-that needs the per-slot results on the host, one more copy a frame (3 waits
-a frame without an event).  Every ``solve_every`` frames the solve adds one
-copy of its result.  A raw image given as a device tensor is copied to the
-host for the samples.  Images reach the pyramid as float32: a corrected or
+that needs the per-slot results on the host, one more copy a frame (2 waits
+a frame without an event, 3 with the eager step).  Every ``solve_every``
+frames the solve adds one copy of its result.  A raw image given as a device
+tensor is copied to the host for the samples.  Images reach the pyramid as float32: a corrected or
 float input is never cast to uint8.
 
 Tracing (``enable_tracing`` or the ``HSO_TRACE`` environment variable, CSV in
@@ -112,6 +117,7 @@ from hso_tpu_torch.ops.warp import memoize_level_windows_packed
 from hso_tpu_torch.pipeline import ba_glue
 from hso_tpu_torch.photometric import OnlinePhotometricCalibrator
 from hso_tpu_torch.pipeline.fused_step import make_frame_step, pack_light, scatter_rows
+from hso_tpu_torch.pipeline.step_graph import StepGraph
 from hso_tpu_torch.track.coarse_tracker import make_coarse_tracker
 from hso_tpu_torch.track.matcher import match_points, select_candidates
 from hso_tpu_torch.track.pose_optimizer import optimize_pose
@@ -203,11 +209,23 @@ class _Pending:
         return self.host.numpy()
 
 
+def _clone_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _clone_tree(v) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_clone_tree(v) for v in tree)
+    return tree.clone()
+
+
 class FrameHandler:
-    def __init__(self, cam, cfg: Config | None = None, device="cuda"):
+    def __init__(self, cam, cfg: Config | None = None, device="cuda", graph: bool = True):
+        """``graph``: on a CUDA device the per-frame step is captured in CUDA
+        graphs (:class:`~hso_tpu_torch.pipeline.step_graph.StepGraph`); False
+        runs the eager step.  On the CPU the step is eager."""
         self.cam = cam
         self.cfg = cfg or Config()
         self.device = torch.device(device)
+        self._graph = bool(graph) and self.device.type == "cuda"
         self.points = PointTable(self.cfg.n_points_ba_max * 2)
         self.kfs = KeyframeWindow(k_all_max=self.cfg.max_n_kfs, recent=SEED_RING)
         self.points.kfs = self.kfs
@@ -645,6 +663,13 @@ class FrameHandler:
         with self._t("fused_dispatch"):
             out = step(img_dev, last.data["pyr"], prev_gm, T_prev, prev_obs, prev_it,
                        exp_prev, I_rel, snap, seeds_in, self._px_error_dev(), self._acc)
+        if self._graph:
+            # a graph's outputs are overwritten two dispatches later: what the
+            # handler may keep longer (the frame's pyramid in the pre-frames
+            # and keyframes, the seed table and the counters, which a failed
+            # frame leaves in place) is copied
+            out = dict(out, data=_clone_tree(out["data"]), seeds=_clone_tree(out["seeds"]),
+                       acc=out["acc"].clone())
 
         self._acc = out["acc"]
         frame.acc_reset = []
@@ -840,7 +865,8 @@ class FrameHandler:
                 o["point_id"][bad] = -1
 
     def _fused_step(self):
-        """The whole per-frame step, built once per handler."""
+        """The whole per-frame step, built once per handler (on the card a
+        :class:`StepGraph` unless the handler was made with ``graph=False``)."""
         if self._step is None:
             cfg = self.cfg
             self._step = make_frame_step(
@@ -850,6 +876,8 @@ class FrameHandler:
                 edgelet_cos_angle=cfg.edgelet_angle,
                 align_max_iter=cfg.align_max_iter,
                 patch_closest=(cfg.patch_source == "closest"), device=self.device)
+            if self._graph:
+                self._step = StepGraph(self._step, self.device)
         return self._step
 
     def _bump_map_version(self) -> None:

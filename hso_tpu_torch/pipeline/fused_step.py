@@ -18,10 +18,15 @@ The map state enters as a *snapshot* dict of device tensors
 (``SNAP_HEAVY``: patch windows, positions, keyframe poses) change only at
 keyframe events, ``SNAP_LIGHT`` every frame.
 
-Host syncs per frame with the kernels on the card: one, the FC/IC choice
-(``bool(use_fc)``); it has to go before the step can be captured in a CUDA
-graph.  The plain versions of the kernels sync more (their loops test
-convergence on the host).
+The FC/IC choice is a device bool and goes through
+:func:`hso_tpu_torch.utils.control_flow.cond` (``jax.lax.cond`` of the JAX
+step), the FC tracker's level LM through ``control_flow.gated_loop``.  Run
+eagerly on the card the step waits for the device at those reads only: once
+for the choice, and on an FC frame once an LM iteration.  Captured by
+:class:`hso_tpu_torch.pipeline.step_graph.StepGraph` (the default on the
+card) it waits on nothing: each is an IF node of the graph.  The plain
+versions of the kernels read more (their loops test convergence on the host);
+on the card the kernels run instead.
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ from hso_tpu_torch.math.robust import masked_median
 from hso_tpu_torch.track.coarse_tracker import make_coarse_tracker
 from hso_tpu_torch.track.matcher import match_points, select_candidates
 from hso_tpu_torch.track.pose_optimizer import optimize_pose
+from hso_tpu_torch.utils.control_flow import cond
 
 #: snapshot keys that change only at keyframe events (heavy, kept on the device)
 SNAP_HEAVY = (
@@ -113,12 +119,12 @@ def make_track_step(cam, grid: tuple, klt_max_level: int, klt_min_level: int,
         dist = torch.where(prev_obs["valid"] & (p_prev[:, 2] > 1e-5),
                            torch.linalg.norm(p_prev, dim=-1),
                            torch.full_like(p_prev[:, 0], -1.0))
-        # FC vs IC by gradient mean: the one host sync of the step
-        use_fc = bool(data["grad_mean"] > prev_grad_mean + 0.5)
+        # FC vs IC by gradient mean, chosen on the device
+        use_fc = data["grad_mean"] > prev_grad_mean + 0.5
         a_init = data["intensity_mean"] / torch.clamp_min(prev_intensity, 1e-6)
-        track = track_fc if use_fc else track_ic
-        tout = track(prev_pyr, data["pyr"], prev_obs["px"], prev_obs["f"], dist,
-                     T_init_rel, a_init)
+        tout = cond(use_fc, track_fc, track_ic,
+                    (prev_pyr, data["pyr"], prev_obs["px"], prev_obs["f"], dist, T_init_rel,
+                     a_init))
         T_cur = se3.mul(tout["T_cur_ref"], T_prev)
         r = tout["exposure_ratio"]
         exposure = torch.where(torch.abs(r - 1.0) < 0.01, exposure_prev, r * exposure_prev)

@@ -10,8 +10,12 @@ the pose, the pyramid and its statistics, the exposure, the tracking
 reference (``obs``), the seed table, the point success/fail counters
 (``acc``) and the map state ``st``.
 
-No step waits on the device except the FC/IC choice inside the frame step;
-the keyframe body waits on nothing.
+On the card the step is a :class:`~hso_tpu_torch.pipeline.step_graph.StepGraph`
+by default (``make_scan_step(..., graph=False)`` gives the eager step): a
+frame is one graph replay and waits on nothing; the eager step waits for the
+device at its FC/IC choice (and on an FC frame once an LM iteration).  The
+keyframe body waits on nothing.  A graph's outputs are overwritten two frames
+later: the carry lives one frame, and the per-frame records are copies.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ import torch
 
 from hso_tpu_torch.pipeline.fused_step import make_frame_step, make_track_step
 from hso_tpu_torch.pipeline.keyframe import keyframe_work
+from hso_tpu_torch.pipeline.step_graph import StepGraph
 
 #: snapshot members the step reads from the scan's map state
 SNAP_FROM_ST = ("light", "pos_w", "pt_pack", "species", "kf_poses", "kf_exposure", "ring_T",
@@ -41,16 +46,21 @@ def obs_slots(cam, cfg) -> int:
     return max(cfg.n_fts_max, grid[1] * grid[2])
 
 
-def make_scan_step(cam, cfg, device="cuda", whole: bool = True):
+def make_scan_step(cam, cfg, device="cuda", whole: bool = True, graph: bool = True):
     """The whole per-frame step for ``cam``/``cfg`` as the scan calls it; with
-    ``whole=False`` its tracking half (``make_track_step``)."""
+    ``whole=False`` its tracking half (``make_track_step``).  On a CUDA device
+    the step is captured in CUDA graphs (:class:`StepGraph`) unless ``graph``
+    is False; on the CPU it is the eager step."""
     make = make_frame_step if whole else make_track_step
-    return make(
+    step = make(
         cam, frame_grid(cam, cfg), cfg.klt_max_level, cfg.klt_min_level, cfg.coarse_n_iter,
         cfg.coarse_pattern_offset, cfg.poseoptim_thresh,
         n_obs_pad=obs_slots(cam, cfg), edgelet_cos_angle=cfg.edgelet_angle,
         align_max_iter=cfg.align_max_iter, patch_closest=(cfg.patch_source == "closest"),
         device=device)
+    if graph and torch.device(device).type == "cuda":
+        return StepGraph(step, device)
+    return step
 
 
 def is_keyframe(i: int) -> bool:
@@ -97,9 +107,9 @@ def run_scan(step, carry, frames, cam, cfg, px_error_angle, on_frame=None):
         carry = dict(T=out["T_new"], pyr=data["pyr"], grad_mean=data["grad_mean"],
                      intensity=data["intensity_mean"], exposure=out["exposure"],
                      obs=out["obs_next"], seeds=seeds, acc=out["acc"], st=st)
-        traj.append(out["T_new"])
+        traj.append(out["T_new"].clone())
         chks.append(chk)
-        inliers.append(out["n_inliers"])
+        inliers.append(out["n_inliers"].clone())
         if on_frame is not None:
             on_frame(i, kf, out, carry)
     return dict(traj=torch.stack(traj), chk=torch.sum(torch.stack(chks)),

@@ -6,8 +6,9 @@ One stage at a time is replaced by a stub, at the level of the names
 ``pipeline/fused_step.py`` calls (``update_seeds``, ``match_points``,
 ``make_coarse_tracker``, ``optimize_pose``, ``select_candidates``; with
 ``build_frame_pyramids`` the six names restored afterwards), the step is
-rebuilt (``pipeline/scan.py::make_scan_step``: the coarse trackers are made
-when the step is built), and ``frames`` frames run through it.  Each stub
+rebuilt (``pipeline/scan.py::make_scan_step`` with ``graph=False``: the
+eager step, launch by launch; the coarse trackers are made when the step is
+built), and ``frames`` frames run through it.  Each stub
 keeps the real function's contract (keys, shapes, dtypes, device) and makes
 no host copy; the coarse stub returns ``T_init`` and ``a_init`` for both the
 FC and the IC tracker.
@@ -187,8 +188,9 @@ class Resumed:
         self.grad_mean0, self.intensity0, self.exposure0 = scalar(10.0), scalar(128.0), scalar(1.0)
 
     def step(self):
-        """The whole step as ``fused_step``'s names stand now."""
-        return make_scan_step(self.cam, self.cfg, self.device)
+        """The whole eager step as ``fused_step``'s names stand now (the
+        ablation measures the eager step, launch by launch)."""
+        return make_scan_step(self.cam, self.cfg, self.device, graph=False)
 
     def run(self, step, n: int):
         """``n`` frames through ``step``; returns (checksum, trajectory)."""

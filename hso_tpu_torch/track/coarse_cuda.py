@@ -28,6 +28,7 @@ from hso_tpu_torch.cameras.models import PROJECTIONS
 from hso_tpu_torch.math import se3
 from hso_tpu_torch.math.linalg_small import solve_spd_small
 from hso_tpu_torch.ops.gatherless import bilinear_scatter_in_windows, grid_in_window
+from hso_tpu_torch.utils.control_flow import gated_loop
 
 WIN = 24
 LAUNCHES = {"coarse_level_ic": 0}
@@ -130,12 +131,24 @@ def robust_system(cur_vals, ref_patch, J_T, a_e, valid, huber, cutoff, is_top: b
 
 def lm_level_loop(evaluate, T, a, n_iter: int, inverse: bool):
     """Levenberg-Marquardt over [exposure ratio; se3] with extrapolated
-    steps.  ``evaluate(T, a) -> (E_norm, H, b, n_terms)``.  One host sync
-    per iteration (the stop test).  Returns (T, a, E_norm, n_terms, iters)."""
+    steps.  ``evaluate(T, a) -> (E_norm, H, b, n_terms)``.  Returns (T, a,
+    E_norm, n_terms, iters).
+
+    The JAX tracker's ``lax.while_loop`` (``hso_tpu/track/coarse_tracker.py:
+    260-290``) as :func:`~hso_tpu_torch.utils.control_flow.gated_loop`: at
+    most ``n_iter`` iterations, each gated by the device flag ``(it < n_iter)
+    & ~stop``; the state is updated in place and ``iters`` counted on the
+    device.  The host reads the flag once an iteration (on the card a wait);
+    in a captured step each iteration is an IF node and nothing waits."""
     E_c, H_c, b_c, nt_c = evaluate(T, a)
-    lam = torch.full((), 0.1, dtype=torch.float32, device=T.device)
-    it = 0
-    while it < n_iter:
+    dev = T.device
+    T = T.clone()
+    a = a.clone()
+    lam = torch.full((), 0.1, dtype=torch.float32, device=dev)
+    it = torch.zeros((), dtype=torch.int32, device=dev)
+    active = torch.ones((), dtype=torch.bool, device=dev)
+
+    def body():
         Hl = H_c + torch.diag(torch.diagonal(H_c)) * lam
         step = solve_spd_small(Hl, b_c)
         extrap = torch.where(lam < 1e-3, torch.sqrt(torch.sqrt(1e-3 / lam)),
@@ -149,18 +162,18 @@ def lm_level_loop(evaluate, T, a, n_iter: int, inverse: bool):
 
         E_new, H_new, b_new, nt_new = evaluate(T_new, a_new)
         accept = E_new < E_c          # False on NaN: select, never blend
-        T = torch.where(accept, T_new, T)
-        a = torch.where(accept, a_new, a)
-        E_c = torch.where(accept, E_new, E_c)
-        H_c = torch.where(accept, H_new, H_c)
-        b_c = torch.where(accept, b_new, b_c)
-        nt_c = torch.where(accept, nt_new, nt_c)
-        lam = torch.where(accept, lam * 0.5, torch.clamp_min(lam * 4.0, 1e-3))
-        it += 1
-        if bool(torch.linalg.norm(step) <= 1e-4):
-            break
-    iters = torch.full((), it, dtype=torch.int32, device=T.device)
-    return T, a, E_c, nt_c, iters
+        T.copy_(torch.where(accept, T_new, T))
+        a.copy_(torch.where(accept, a_new, a))
+        E_c.copy_(torch.where(accept, E_new, E_c))
+        H_c.copy_(torch.where(accept, H_new, H_c))
+        b_c.copy_(torch.where(accept, b_new, b_c))
+        nt_c.copy_(torch.where(accept, nt_new, nt_c))
+        lam.copy_(torch.where(accept, lam * 0.5, torch.clamp_min(lam * 4.0, 1e-3)))
+        it.add_(1)
+        active.copy_((it < n_iter) & ~(torch.linalg.norm(step) <= 1e-4))
+
+    gated_loop(n_iter, active, body)
+    return T, a, E_c, nt_c, it
 
 
 def project_level(xyz_cur, fxl: float, fyl: float, cxl: float, cyl: float, projection=IDEAL):

@@ -152,13 +152,14 @@ def test_sources_name_neither_jax_nor_the_jax_package():
 def test_kernel_sources_are_in_the_package():
     from hso_tpu_torch import _cuda_build
 
-    assert _cuda_build._sources() == ["align.cu", "coarse.cu", "epipolar.cu", "pose.cu",
-                                      "probe.cu", "window.cu"]
+    assert _cuda_build._sources() == ["align.cu", "coarse.cu", "epipolar.cu", "graph_cond.cu",
+                                      "pose.cu", "probe.cu", "window.cu"]
     assert "hso_zmncc_line_scores" in _cuda_build._SIGNATURES
     # every kernel's entry point is in its source, and no source uses atomics
     entries = {"epipolar.cu": "hso_zmncc_line_scores", "coarse.cu": "hso_coarse_level_ic",
                "pose.cu": "hso_pose_lm", "align.cu": "hso_align_match",
-               "window.cu": "hso_extract_windows", "probe.cu": "hso_probe_latency"}
+               "window.cu": "hso_extract_windows", "probe.cu": "hso_probe_latency",
+               "graph_cond.cu": "hso_if_node_begin"}
     for name, entry in entries.items():
         with open(os.path.join(_cuda_build.CSRC_DIR, name)) as fh:
             src = fh.read()
@@ -168,10 +169,10 @@ def test_kernel_sources_are_in_the_package():
     assert "arch=compute_90a,code=sm_90a" in _cuda_build.NVCC_FLAGS
     # the six kernels take at least nine arguments each (pointers and the
     # stream declared one by one); K1's multi-job entry a table of jobs; the
-    # plans, K3's override and the probes fewer
+    # plans, K3's override, the probes and the IF nodes of a captured step fewer
     helpers = {"hso_coarse_launch_plan", "hso_coarse_plan_override", "hso_probe_latency",
                "hso_probe_tma", "hso_zmncc_launch_plan", "hso_align_launch_plan",
-               "hso_window_launch_plan"}
+               "hso_window_launch_plan", "hso_if_node_begin", "hso_if_node_end"}
     assert helpers < set(_cuda_build._SIGNATURES)
     jobs = _cuda_build._SIGNATURES["hso_extract_windows_jobs"]
     assert jobs[0] is ctypes.POINTER(_cuda_build.WindowJob) and len(jobs) == 4
