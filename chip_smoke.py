@@ -36,12 +36,24 @@ the ``track``, ``frame``, ``fc_frame`` and ``profilers`` phases run the
 eager step (``graph=False``), whose kernel calls they record, tally or
 reroute.  The wrappers count a launch where they are called, so for the
 graphed step they count its warm-up and the capture of its two instances,
-never a replay.  The ``graph`` phase (before ``scan``) runs 48 frames of the
+never a replay.  The scan's keyframe body is a captured graph too
+(``scan.make_keyframe_body``: two instances in turns), and so is the
+handler's windowed-BA solve (``ba_glue.captured_local_ba``, one graph a
+problem key).  The ``graph`` phase (before ``scan``) runs 48 frames of the
 scan from the checkpoint, an FC frame first and eight keyframe events,
-through the graph and eagerly: every output of every frame, ``st`` and the
-seed table bitwise equal, a second graph run too, every step call under
-``torch.cuda.set_sync_debug_mode("error")``; ms a frame both ways, device
-kernels and busy ms a frame, capture seconds and pool bytes.
+through the step graph and the keyframe graph and eagerly: every output of
+every frame, ``st``, the seed table and each event's statistics bitwise
+equal, a second graph run too, every step call and every body call under
+``torch.cuda.set_sync_debug_mode("error")``; ms a frame both ways (a
+keyframe frame apart), device kernels and busy ms a frame, warm-up and
+capture seconds, pool bytes and captured nodes of both graphs, and K2's
+launches captured into the keyframe graph.  The handler phase holds every
+captured BA solve to the eager solver on the same problem, bit for bit, and
+times a keyframe event on a graph handler and on an eager one.  In a child
+process that has run no profiler session (``--profiler-fault``), the step
+graph is timed over 20 calls, an empty ``torch.profiler`` session runs, and
+the same 20 calls are timed again (the ``profiler_fault`` line, after
+``distributed_ba``).
 
 Then the host pipeline users call, ``FrameHandler.add_image``
 (``hso_tpu_torch.pipeline.frame_handler``): from frame 0 of the bench
@@ -98,12 +110,14 @@ barrier, a cluster barrier, the reductions and the scalar steps of K3 and K5,
 and the latency floor they give), ``track``, ``frame``, ``fc_frame`` (one frame
 forced through the forward-compositional branch, card against CPU), ``seeds``,
 ``graph``, ``scan``, ``handler`` (its ``kernels`` lines first), ``pipelined``,
-``distributed_ba``, ``dataset``, ``cameras``, then the profiles of the timed
-phases (``scan_profile``, ``graph_profile``, ``handler_profile``: after a
-``torch.profiler`` session the step graph's replays are slower on the host,
-so they run after every timed phase), ``profilers`` (three lines: ``ablation``,
-``sweep``, ``weak_scaling``); then the ``{"kernels": [...]}`` summary, the card line and, last, the
-``{"ok": true, "device": {...}}`` line.  Any failed check raises.
+``distributed_ba``, ``profiler_fault``, ``dataset``, ``cameras``, then the
+profiles of the timed phases (``graph_profile``, ``scan_profile``,
+``handler_profile``: after a ``torch.profiler`` session the step graph's
+replays are slower on the host, so they run after every timed phase),
+``profilers`` (three lines: ``ablation``, ``sweep``, ``weak_scaling``); then
+the ``{"kernels": [...]}`` summary, the card line and, last, the
+``{"ok": true, "device": {...}}`` line.  Every phase line carries ``at_s``,
+the seconds since the script began.  Any failed check raises.
 """
 
 from __future__ import annotations
@@ -136,7 +150,8 @@ from hso_tpu_torch.mapping import depth_filter  # noqa: E402
 from hso_tpu_torch import testing  # noqa: E402
 from hso_tpu_torch.ops import align_cuda, epipolar, epipolar_cuda, window_cuda  # noqa: E402
 from hso_tpu_torch.ops.gatherless import clip_anchor  # noqa: E402
-from hso_tpu_torch.pipeline import keyframe, scan  # noqa: E402
+from hso_tpu_torch.ba.local_ba import local_bundle_adjustment  # noqa: E402
+from hso_tpu_torch.pipeline import ba_glue, keyframe, scan  # noqa: E402
 from hso_tpu_torch.pipeline.step_graph import StepGraph  # noqa: E402
 from hso_tpu_torch.pipeline.frame_handler import (RESULT_FAILURE, RESULT_FRAME,  # noqa: E402
                                                   RESULT_KEYFRAME, RESULT_NO_KEYFRAME,
@@ -179,8 +194,13 @@ FRAME_KERNELS = TRACK_KERNELS + ("zmncc_line_scores",)
 SEED_WIN = depth_filter.HOST_WIN
 
 
+_T0 = time.perf_counter()
+
+
 def emit(phase: str, **kw) -> None:
-    print(json.dumps({"phase": phase, **kw}), flush=True)
+    """One JSON line for ``phase``, with the seconds since the script began."""
+    print(json.dumps({"phase": phase, **kw, "at_s": round(time.perf_counter() - _T0, 1)}),
+          flush=True)
 
 
 def zero_counters() -> None:
@@ -1267,9 +1287,6 @@ def track_ate(recs, gt_poses) -> float:
 N_SCAN = 192             #: frames of the evolving-map scan (32 keyframe events)
 N_SCAN_REPEAT = 48       #: frames of the second run, held bit for bit (8 events)
 N_SCAN_PROFILE = 12      #: frames profiled for device kernels per frame (2 events)
-#: step outputs the keyframe body reads
-KF_OUT_KEYS = ("T_new", "exposure", "success", "inlier", "cid", "f_cur", "grad_cur", "species",
-               "level", "px", "depth_mean", "depth_min")
 
 
 def to_device(tree, device):
@@ -1350,8 +1367,7 @@ def keyframe_card_vs_cpu(kept, stats_card, cam, cfg) -> dict:
     table's integer members exact, its floats 1e-5 relative."""
     cpu = torch.device("cpu")
     out5, carry5 = kept[5]
-    out_in = {k: out5[k] for k in KF_OUT_KEYS}
-    out_in["data"] = {k: out5["data"][k] for k in ("pyr", "sobel_x", "sobel_y", "grad_mean")}
+    out_in = scan.keyframe_inputs(out5)
     before = read_counters()
     st_c, seeds_c, chk_c, stats_c = keyframe.keyframe_work(
         to_device(kept[4][1]["st"], cpu), to_device(out5["seeds"], cpu), to_device(out_in, cpu),
@@ -1363,7 +1379,8 @@ def keyframe_card_vs_cpu(kept, stats_card, cam, cfg) -> dict:
     for k in ("ba_pack", "light", "host_kf", "pt_pack", "species", "f_host", "ring_kf",
               "ring_T", "cursor"):
         assert torch.equal(st_k[k], st_c[k]), f"keyframe: st[{k}] card != CPU"
-    assert (st_k["kf_count"], st_k["batch"]) == (st_c["kf_count"], st_c["batch"])
+    for k in ("kf_count", "batch"):                 # device int32 scalars
+        assert st_k[k].dtype == st_c[k].dtype == torch.int32 and int(st_k[k]) == int(st_c[k])
 
     def rel(a, b):
         return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
@@ -1406,8 +1423,9 @@ def scan_phase(cam, cfg, scene, device, smi, results, later, n_scan=N_SCAN,
     ``n_repeat`` frames bit for bit and the first keyframe event against the
     CPU, holds K2 against its plain version on the win-44 call of that event
     (into ``results``, and a ``kernels`` line), profiles ``n_profile`` frames
-    (on a card), emits the ``scan`` line.  Returns (launches, tallies) of the
-    scan."""
+    (on a card), emits the ``scan`` line.  The step and the keyframe body run
+    as captured graphs: the first frame and the first event include their
+    warm-up and capture.  Returns (launches, tallies) of the scan."""
     carry0, meta = checkpoint.scan_state_from_checkpoint(BOOT_NPZ, cam, cfg, device)
     start = meta["frame_count"]
     gt_scan = trajectory(start + n_scan)[start:]
@@ -1429,8 +1447,12 @@ def scan_phase(cam, cfg, scene, device, smi, results, later, n_scan=N_SCAN,
     for name, tally in tallies_scan.items():
         assert sum(tally.counts.values()) == launches_scan[name], \
             f"{name}: call sites {tally.counts} but {launches_scan[name]} launches"
-    assert tallies_scan["pack_level_windows"].counts[SEED_WIN] == n_kf, \
-        "K2 at win 44 is not launched once a keyframe"
+    # K2 at win 44 (init_seeds in the keyframe body): on the card the body's
+    # warm-up and the capture of its two instances at the first event, then
+    # replays only; an eager body calls it once an event
+    body_graphed = isinstance(scan_step.keyframe_body, StepGraph)
+    assert tallies_scan["pack_level_windows"].counts[SEED_WIN] == (3 if body_graphed else n_kf), \
+        "K2 at win 44 is not captured into the keyframe graph's two instances"
     traj_scan = res["traj"].cpu().numpy()
     inliers_scan = res["n_inliers"].cpu().numpy()
     assert np.isfinite(traj_scan).all() and np.isfinite(float(res["chk"]))
@@ -1478,6 +1500,10 @@ def scan_phase(cam, cfg, scene, device, smi, results, later, n_scan=N_SCAN,
          ms_keyframe_extra_median=statistics.median(ms_kf) - statistics.median(ms_non),
          ms_first_frame=ms_scan[0], ms_scan_total=sum(ms_scan),
          first_frame_includes="the step's warm-up and capture",
+         ms_first_keyframe=ms_kf[0],
+         first_keyframe_includes="the keyframe body's warm-up and capture",
+         keyframe_body=("StepGraph: two captured CUDA graphs of keyframe_work"
+                        if body_graphed else "eager"),
          launches=launches_scan,
          launches_per_frame={k: v / n_scan for k, v in launches_scan.items()},
          launches_by_window={k: {str(w): n for w, n in t.counts.items()}
@@ -1533,26 +1559,112 @@ def tree_bits_differ(a, b) -> list:
     return bad
 
 
+class StrictCalls:
+    """A step (and its keyframe body) called under
+    ``torch.cuda.set_sync_debug_mode("error")``: any host wait inside a call
+    raises."""
+
+    def __init__(self, fn, body=None):
+        self.fn = fn
+        if body is not None:
+            self.keyframe_body = StrictCalls(body)
+
+    def __call__(self, *a):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return self.fn(*a)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+
+N_FAULT_REPLAYS = 20     #: timed calls of one graph before and after an empty profiler session
+
+
+def profiler_fault(sg, args, device) -> dict:
+    """Host ms of ``N_FAULT_REPLAYS`` calls of one step graph on the same
+    arguments (each synchronised), then an empty ``torch.profiler`` session,
+    then the same calls again: whether a session that profiles nothing slows
+    the later replays."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def timed():
+        ms = []
+        for _ in range(N_FAULT_REPLAYS):
+            torch.cuda.synchronize(device)
+            t0 = time.perf_counter()
+            sg(*args)
+            torch.cuda.synchronize(device)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return ms
+
+    before = timed()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        pass
+    after = timed()
+    return dict(replays=N_FAULT_REPLAYS, ms_before=before, ms_after_empty_session=after,
+                median_before=statistics.median(before),
+                median_after=statistics.median(after),
+                ratio=statistics.median(after) / statistics.median(before))
+
+
+FAULT_TIMEOUT_S = 300
+
+
+def profiler_fault_child() -> int:
+    """``chip_smoke.py --profiler-fault``: in a process that has run no
+    profiler session, the scan's step graph on its first frame from the
+    checkpoint, :func:`profiler_fault` on it; one JSON line."""
+    device = torch.device("cuda", 0)
+    scan.pin_float32_matmul()
+    cam, cfg = bench_camera(), Config()
+    carry0, meta = checkpoint.scan_state_from_checkpoint(BOOT_NPZ, cam, cfg, device)
+    start = meta["frame_count"]
+    img = torch.as_tensor(render_frames(bench_scene(cam), trajectory(start + 1)[start:])[0])
+    args = scan_step_args(carry0, img.to(device), meta["px_error_angle"])
+    sg = scan.make_scan_step(cam, cfg, device)
+    sg(*args)                                     # warm-up and capture
+    print(json.dumps(profiler_fault(sg, args, device)), flush=True)
+    return 0
+
+
+def profiler_fault_phase(smi) -> None:
+    """The profiler-fault probe in a child process of its own (no session
+    before it there): the ``profiler_fault`` line."""
+    import subprocess
+
+    res = subprocess.run([sys.executable, os.path.abspath(__file__), "--profiler-fault"],
+                         cwd=ROOT, capture_output=True, text=True, timeout=FAULT_TIMEOUT_S)
+    assert res.returncode == 0, f"profiler-fault probe: {res.stderr[-2000:]}"
+    doc = json.loads(res.stdout.strip().splitlines()[-1])
+    emit("profiler_fault", card=smi, graph="the scan's step graph, its first (IC) frame",
+         **doc)
+
+
 def graph_phase(cam, cfg, scene, device, smi, later) -> dict:
-    """The frame step as one device program: ``N_GRAPH`` frames of the scan
-    from the checkpoint through ``StepGraph`` (two captured CUDA graphs, the
-    FC/IC choice and the FC level LM as IF nodes) and through the eager step,
-    in the same call.  The first frame is made an FC frame (the carry's
-    previous gradient mean set far below, as the ``fc_frame`` phase does), the
-    others are IC frames, and every sixth frame has a keyframe event (the
-    eager keyframe body).  Counters set to 0 just before the capture, read
-    just after: the captured launches (both instances, both branches of each
-    IF node).  Checks: every output of every frame, the trajectory, ``st`` and
-    the seed table bitwise equal to the eager run's, and a second graph run
-    bitwise equal with every step call (staging and replay) under
-    ``torch.cuda.set_sync_debug_mode("error")``: no host wait (that run's ms
-    are reported apart).  Measures ms a frame both ways, warm-up and capture
-    seconds, the pools' bytes (and what a second step graph gives back when
-    it goes), and the nodes and kernel nodes captured into the IF bodies that
-    hold no IF node; leaves in ``later`` the profiles of ``N_GRAPH_PROFILE``
-    frames each way (device kernels and busy ms a frame, the FC frame and an
-    IC frame apart) and the same frames timed again after them: the
-    ``graph_profile`` line.  Returns the captured launches."""
+    """The frame step and the keyframe body as device programs: ``N_GRAPH``
+    frames of the scan from the checkpoint through ``StepGraph`` (two captured
+    CUDA graphs, the FC/IC choice and the FC level LM as IF nodes) with the
+    keyframe body a ``StepGraph`` too (two captured graphs of the whole body,
+    ``scan.make_keyframe_body``), and through the eager step and body, in the
+    same call.  The first frame is made an FC frame (the carry's previous
+    gradient mean set far below, as the ``fc_frame`` phase does), the others
+    are IC frames, and every sixth frame has a keyframe event.  Counters set
+    to 0 just before each capture, read just after: the captured launches
+    (both instances; of the step both branches of each IF node; of the body
+    K2 on the event's detections, which must be there).  Checks: every
+    output of every frame, the trajectory, ``st``, the seed table and the
+    per-event statistics bitwise equal to the eager run's, and a second
+    graph run bitwise equal with every step call and every body call
+    (staging and replay) under ``torch.cuda.set_sync_debug_mode("error")``:
+    no host wait (that run's ms are reported apart).  Measures ms a frame
+    both ways (a keyframe frame apart), warm-up and capture seconds, the
+    pools' bytes (and what a second step graph gives back when it goes), the
+    nodes and kernel nodes captured (the step's leaf IF bodies; the body's
+    whole graph); leaves in ``later`` the profiles of ``N_GRAPH_PROFILE``
+    frames each way (device kernels and busy ms a frame,
+    the FC frame and an IC frame apart) and the same frames timed again
+    after them: the ``graph_profile`` line.  Returns (the step's captured
+    launches, the body's)."""
     carry0, meta = checkpoint.scan_state_from_checkpoint(BOOT_NPZ, cam, cfg, device)
     carry0 = dict(carry0, grad_mean=torch.full((), -1e6, dtype=torch.float32, device=device))
     start, px_err = meta["frame_count"], meta["px_error_angle"]
@@ -1560,7 +1672,9 @@ def graph_phase(cam, cfg, scene, device, smi, later) -> dict:
     scan_args = (cam, cfg, px_err, device)
     eager = scan.make_scan_step(cam, cfg, device, graph=False)
     sg = scan.make_scan_step(cam, cfg, device)
-    assert isinstance(sg, StepGraph)
+    kb = sg.keyframe_body
+    assert isinstance(sg, StepGraph) and isinstance(kb, StepGraph)
+    assert not isinstance(eager.keyframe_body, StepGraph)
     args0 = scan_step_args(carry0, frames[0], px_err)
     sg.warm_up(*args0)
     zero_counters()
@@ -1569,24 +1683,29 @@ def graph_phase(cam, cfg, scene, device, smi, later) -> dict:
     for name in FRAME_KERNELS:
         assert captured[name] > 0, f"kernel {name} was not captured into the step's graph"
 
-    ref, used_fc = [], []
+    ref, used_fc, before_event = [], [], {}
 
     def keep_eager(i, out, carry_i):
         ref.append(clone_tree(out))
         used_fc.append(bool(out["used_fc"]))
+        if scan.is_keyframe(i + 1) and not before_event:
+            before_event.update(st=clone_tree(carry_i["st"]))
 
     res_e, ms_e, _ = run_scan_timed(eager, carry0, frames, *scan_args, each=keep_eager)
     assert used_fc[0] and not any(used_fc[1:]), f"FC frames: {used_fc}"
 
-    def strict(*a):
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            return sg(*a)
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
+    # the keyframe body captured from the first event's inputs (the map state
+    # before it, the step's output at it)
+    i_kf = next(i for i in range(N_GRAPH) if scan.is_keyframe(i))
+    body_args = (before_event["st"], ref[i_kf]["seeds"], scan.keyframe_inputs(ref[i_kf]))
+    kb.warm_up(*body_args)
+    zero_counters()
+    kb.capture(*body_args)
+    captured_kf = read_counters()
+    assert captured_kf["pack_level_windows"] > 0, "K2 was not captured into the keyframe graph"
 
     runs = []
-    for step in (sg, strict):       # timed as it is; then every call under "error"
+    for step in (sg, StrictCalls(sg, kb)):   # timed as it is; then every call under "error"
         differ = {}
 
         def hold(i, out, carry_i):
@@ -1610,7 +1729,7 @@ def graph_phase(cam, cfg, scene, device, smi, later) -> dict:
         kf = [m for i, m in enumerate(ms) if scan.is_keyframe(i)]
         return dict(fc_frame=ms[0], ic_frames_median=statistics.median(non[1:]),
                     keyframe_median=statistics.median(kf) if kf else None,
-                    all_median=statistics.median(ms))
+                    keyframe_ms=kf, all_median=statistics.median(ms))
 
     def profiled():
         doc = {name: profile_scan(step, carry0, frames[:N_GRAPH_PROFILE], *scan_args)
@@ -1648,9 +1767,14 @@ def graph_phase(cam, cfg, scene, device, smi, later) -> dict:
          pool_bytes=pool, leaf_body_nodes=sg.nodes[0], leaf_body_kernel_nodes=sg.nodes[1],
          captured_launches_both_instances=captured,
          captured_launches_per_instance={k: v / 2 for k, v in captured.items()},
+         keyframe_body=dict(
+             graph="StepGraph: two captured CUDA graphs of keyframe_work, used in turns",
+             warm_up_seconds=kb.warm_up_seconds, capture_seconds=kb.capture_seconds,
+             pool_bytes=kb.pool_bytes, nodes=kb.nodes[0], kernel_nodes=kb.nodes[1],
+             captured_launches_both_instances=captured_kf),
          every_output_bitwise_equal_to_eager=True, second_run_bitwise_equal=True,
-         host_waits_in_step_calls=0)
-    return captured
+         host_waits_in_step_calls=0, host_waits_in_body_calls=0)
+    return captured, captured_kf
 
 
 # ------------------------------------------------------------------ handler phase
@@ -2114,6 +2238,30 @@ HANDLER_SHAPES = {
 }
 
 
+def hold_ba_solves(h, problems, device) -> dict:
+    """Every windowed-BA solve a handler made (``problems``: the staged
+    problems ``ba_glue.solve_capture`` saw, copied): its captured solve
+    (``h._ba_solves``) against the eager solver on the same problem, bit for
+    bit; and what each captured solve holds."""
+    assert problems, "the handler solved no windowed BA"
+    graphs = h._ba_solves
+    keys = sorted({tuple(kw[k] for k in ba_glue.BA_KEY) for _, kw in problems})
+    assert sorted(graphs) == keys, f"captured solves {sorted(graphs)} for keys {keys}"
+    for j, (args, kw) in enumerate(problems):
+        got = clone_tree(ba_glue.captured_local_ba(graphs, device, **kw)(*args))
+        want = local_bundle_adjustment(*args, **kw)
+        bad = tree_bits_differ(got, want)
+        assert not bad, f"BA solve {j} (n_iter {kw['n_iter']}): captured != eager in {bad}"
+    return dict(problems=len(problems), n_iter=[kw["n_iter"] for _, kw in problems],
+                captured_bitwise_equal_to_eager=True,
+                graphs={str(k): dict(warm_up_seconds=g.warm_up_seconds,
+                                     capture_seconds=g.capture_seconds,
+                                     pool_bytes=g.pool_bytes,
+                                     nodes=None if g.nodes is None else g.nodes[0],
+                                     kernel_nodes=None if g.nodes is None else g.nodes[1])
+                        for k, g in graphs.items()})
+
+
 def handler_phase(cam, cfg, scene, device, smi, results, later):
     """``FrameHandler.add_image``, the entry point users call, on the card.
 
@@ -2129,23 +2277,35 @@ def handler_phase(cam, cfg, scene, device, smi, results, later):
     ms a frame with and without an event, host syncs a frame (its device
     kernels a frame are profiled later: the ``handler_profile`` line).  The
     new call shapes of the kernels (``HANDLER_SHAPES``) are held
-    against their plain versions on the calls recorded here.  Returns
+    against their plain versions on the calls recorded here.  The handlers
+    run the step and the windowed-BA solve as captured graphs: every solve of
+    the live run is held, on the problem ``ba_glue.solve_capture`` saw, to
+    the eager solver bit for bit (:func:`hold_ba_solves`), and the resumed
+    loop's warm and timed frames run again on an eager handler
+    (``graph=False``): the same poses, its ms a frame with and without an
+    event beside the graph handler's.  Returns
     (launches of the live run, {results key: launches at that shape})."""
     from hso_tpu_torch.pipeline.frame_handler import FrameHandler
 
     gt = trajectory(N_LIVE + 1 + N_RECOVER)
     frames = render_frames(scene, gt)
     tally = SiteTally()
-    with handler_sites(tally):
-        h = tally.trace(FrameHandler(cam, cfg, device=device))
-        zero_counters()
-        live = drive_handler(h, frames[:N_LIVE], device)
-        i_boot = next(i for i, r in enumerate(live) if r["stage"] == STAGE_DEFAULT)
-        decided = [i for i, r in enumerate(live) if r["decided"]]
-        # one black frame, then the frames from where the camera is
-        black = drive_handler(h, [np.zeros_like(frames[0])], device, first_ts=N_LIVE)
-        recover = drive_handler(h, frames[N_LIVE + 1:], device, first_ts=N_LIVE + 1)
-        launches_live = read_counters()
+    problems = []            # every windowed-BA solve's staged problem, copied
+    ba_glue.solve_capture = lambda a, kw: problems.append((clone_tree(a), dict(kw)))
+    try:
+        with handler_sites(tally):
+            h = tally.trace(FrameHandler(cam, cfg, device=device))
+            zero_counters()
+            live = drive_handler(h, frames[:N_LIVE], device)
+            i_boot = next(i for i, r in enumerate(live) if r["stage"] == STAGE_DEFAULT)
+            decided = [i for i, r in enumerate(live) if r["decided"]]
+            # one black frame, then the frames from where the camera is
+            black = drive_handler(h, [np.zeros_like(frames[0])], device, first_ts=N_LIVE)
+            recover = drive_handler(h, frames[N_LIVE + 1:], device, first_ts=N_LIVE + 1)
+            launches_live = read_counters()
+    finally:
+        ba_glue.solve_capture = None
+    ba_solves = hold_ba_solves(h, problems, device)
     for name in FRAME_KERNELS:
         assert launches_live[name] > 0, f"kernel {name} was never launched by the handler"
     for name in COUNTERS:
@@ -2223,6 +2383,16 @@ def handler_phase(cam, cfg, scene, device, smi, results, later):
         k += 1
     n_warm = k
     timed = drive_handler(hr, frames_r[k:k + N_HOST_TIMED], device, first_ts=z_start + k)
+    # the same warm and timed frames with the eager step and the eager solve
+    he = FrameHandler(cam, cfg, device=device, graph=False)
+    checkpoint.load_checkpoint(he, BOOT_NPZ, resume_stage="default")
+    for j in range(n_warm):
+        he.add_image(frames_r[j], ts=float(z_start + j))
+    timed_e = drive_handler(he, frames_r[k:k + N_HOST_TIMED], device, first_ts=z_start + k)
+    assert [r["status"] for r in timed_e] == [r["status"] for r in timed]
+    assert all(np.array_equal(a["T"], b["T"]) for a, b in zip(timed, timed_e)), \
+        "the resumed loop: the eager handler's poses differ from the graph handler's"
+    del he
     k += N_HOST_TIMED
     d_map = se3_dist(torch.as_tensor(by_map[0]["T"]), torch.as_tensor(
         np.asarray(hr.trajectory[0][1])))
@@ -2258,6 +2428,8 @@ def handler_phase(cam, cfg, scene, device, smi, results, later):
     ms_non = [r["ms"] for r in timed if r["status"] != RESULT_KEYFRAME]
     ms_kf = [r["ms"] for r in timed if r["status"] == RESULT_KEYFRAME]
     seconds = sum(r["ms"] for r in timed) / 1e3
+    ms_non_e = [r["ms"] for r in timed_e if r["status"] != RESULT_KEYFRAME]
+    ms_kf_e = [r["ms"] for r in timed_e if r["status"] == RESULT_KEYFRAME]
 
     # the new call shapes against their plain versions
     shape_launches = {}
@@ -2291,6 +2463,13 @@ def handler_phase(cam, cfg, scene, device, smi, results, later):
                         ms_per_frame_median_non_keyframe=statistics.median(ms_non),
                         ms_per_frame_median_keyframe=(statistics.median(ms_kf)
                                                       if ms_kf else None),
+                        ms_keyframe=ms_kf,
+                        eager=dict(step_and_ba="eager (graph=False)",
+                                   ms_per_frame_median_non_keyframe=statistics.median(
+                                       ms_non_e),
+                                   ms_per_frame_median_keyframe=(
+                                       statistics.median(ms_kf_e) if ms_kf_e else None),
+                                   ms_keyframe=ms_kf_e, poses_bitwise_equal=True),
                         min_inliers=min(r["n_inliers"] for r in timed),
                         counted_frames=N_HOST_COUNTED,
                         counted_keyframe_events=len(counted) - len(plain_frames),
@@ -2299,6 +2478,7 @@ def handler_phase(cam, cfg, scene, device, smi, results, later):
                         counted_statuses=[c[0] for c in counted],
                         stream_syncs_by_line=sync_sites,
                         host_ms_by_part=host_parts),
+         ba_solves=ba_solves,
          launches=launches_live,
          launches_by_site={name: dict(sorted(c.items())) for name, c in tally.counts.items()})
     return launches_live, shape_launches
@@ -3086,11 +3266,15 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--other-csrc", default="",
                     help="another version of hso_tpu_torch/csrc to hold K6 against")
+    ap.add_argument("--profiler-fault", action="store_true",
+                    help="only the profiler-fault probe (the child of the main run)")
     cli = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
               file=sys.stderr)
         return 2
+    if cli.profiler_fault:
+        return profiler_fault_child()
     device = torch.device("cuda", 0)
     scan.pin_float32_matmul()
     smi = card_line()
@@ -3326,12 +3510,13 @@ def main() -> int:
     # profiles run last: after a torch.profiler session the step graph's
     # replays are slower on the host (PERF.md §7), so no phase is timed after one
     later = []
-    launches_graph = graph_phase(cam, cfg, scene, device, smi, later)
+    launches_graph, launches_kf_graph = graph_phase(cam, cfg, scene, device, smi, later)
     launches_scan, tallies_scan = scan_phase(cam, cfg, scene, device, smi, results, later)
     launches_handler, handler_shapes = handler_phase(cam, cfg, scene, device, smi, results,
                                                      later)
     launches_pipelined = pipelined_phase(cam, cfg, scene, device, smi)
     distributed_phase(smi)
+    profiler_fault_phase(smi)
     launches_dataset = dataset_phase(device, smi)
     launches_cameras, camera_shapes = cameras_phase(device, smi, results)
     handler_shapes = dict(handler_shapes, **camera_shapes)
@@ -3373,10 +3558,11 @@ def main() -> int:
             bound_by=r["bound_by"], library_ms=r["library_ms"],
             launches_in=("cameras" if key in camera_shapes else
                          "handler" if key in handler_shapes else "scan"),
-            launches_are=("dispatcher calls in the scan: eager launches (keyframe body), "
-                          "the step graph's warm-up and the capture of its two instances; "
-                          "a replay launches without counting"),
+            launches_are=("dispatcher calls in the scan: the warm-up of the step graph and "
+                          "of the keyframe graph and the capture of each one's two "
+                          "instances; a replay launches without counting"),
             graph_phase_captured_launches=launches_graph[name],
+            keyframe_graph_captured_launches=launches_kf_graph[name],
             handler_phase_launches=launches_handler[name],
             pipelined_phase_launches=launches_pipelined[name],
             dataset_phase_launches=launches_dataset[name],

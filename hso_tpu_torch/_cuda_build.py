@@ -176,6 +176,8 @@ _SIGNATURES = {
     "hso_if_node_begin": [_P, _P, _I, _P],
     "hso_if_node_end": [_P, ctypes.POINTER(ctypes.c_longlong),
                         ctypes.POINTER(ctypes.c_longlong)],
+    "hso_capture_counts": [_P, ctypes.POINTER(ctypes.c_longlong),
+                           ctypes.POINTER(ctypes.c_longlong)],
     "hso_probe_tma": [_I, _P, _I, _I, _P, _P],
 }
 

@@ -16,10 +16,12 @@ Protocol, as the JAX package's ``bench.py`` has it:
     staged on the device before timing;
   * on the card the step is a CUDA graph
     (:class:`hso_tpu_torch.pipeline.step_graph.StepGraph`, the counterpart
-    of the JAX step's ``jit``), captured in the warm pass, as the JAX bench's
-    warm pass compiles;
+    of the JAX step's ``jit``) and so is the keyframe body (the JAX scan's
+    ``lax.cond`` around it), both captured in the warm pass, as the JAX
+    bench's warm pass compiles;
   * one untimed warm pass over the first 12 frames (kernel build, the step
-    graph's warm-up and capture, allocator, library handles), then 2 timed
+    graph's warm-up and capture, the keyframe body's at the first of the
+    pass's two events, allocator, library handles), then 2 timed
     scans from the same start state, each ending in a device synchronise
     inside the timed window;
   * the trajectory is checked against ground truth with scale-aligned ATE:
@@ -215,6 +217,8 @@ def main(argv=None) -> int:
     doc = {"metric": "pipeline_frames_per_s", "unit": "frames/s", "device": str(device),
            "card": card, "frames": N_SCAN, "repeats": N_REPEATS,
            "frame_step": "cuda graph" if isinstance(step, StepGraph) else "eager",
+           "keyframe_body": ("cuda graph" if isinstance(step.keyframe_body, StepGraph)
+                             else "eager"),
            "keyframe_events": sum(scan.is_keyframe(i) for i in range(N_SCAN)),
            "scan_seconds": times}
     if not (np.isfinite(chk) and max(rmse, host["ate"], host_s["ate"]) < ATE_GATE_M):

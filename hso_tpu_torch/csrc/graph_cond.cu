@@ -16,7 +16,9 @@
 //   `body` into the node's body graph;
 //   hso_if_node_end: end the capture of `body`, first counting its nodes
 //   when asked (only for a body that holds no IF node of its own: counting
-//   one that does fails on the card).
+//   one that does fails on the card);
+//   hso_capture_counts: the nodes of any capture under way that holds no IF
+//   node (the keyframe body's graph, the windowed BA's).
 //
 // Not a port of a TPU kernel: the one kernel here reads a bool and sets a
 // handle.  Nothing here allocates on the device; every call returns its
@@ -81,28 +83,35 @@ extern "C" int hso_if_node_begin(cudaStream_t stream, const bool* pred, int nega
                                          nullptr, 0, cudaStreamCaptureModeRelaxed);
 }
 
+// Add the nodes and kernel nodes of the graph being captured on `stream` to
+// `nodes` and `kernels` (the record of what a capture holds; only for a graph
+// that holds no IF node: counting one that does fails on the card).
+extern "C" int hso_capture_counts(cudaStream_t stream, long long* nodes, long long* kernels) {
+    cudaGraph_t graph;
+    const cudaGraphNode_t* deps = nullptr;
+    size_t n = 0;
+    cudaError_t e = capture_info(stream, &graph, &deps, &n);
+    if (e == cudaSuccess) e = cudaGraphGetNodes(graph, nullptr, &n);
+    if (e == cudaSuccess && n > 0) {
+        cudaGraphNode_t* all = new cudaGraphNode_t[n];
+        e = cudaGraphGetNodes(graph, all, &n);
+        for (size_t i = 0; e == cudaSuccess && i < n; ++i) {
+            cudaGraphNodeType t;
+            e = cudaGraphNodeGetType(all[i], &t);
+            *nodes += 1;
+            *kernels += t == cudaGraphNodeTypeKernel;
+        }
+        delete[] all;
+    }
+    return e;
+}
+
 // With `nodes` and `kernels` given, add the body's nodes and kernel nodes to
-// them before its capture ends (the record of what a capture holds).
+// them before its capture ends.
 extern "C" int hso_if_node_end(cudaStream_t body, long long* nodes, long long* kernels) {
     cudaError_t e = cudaSuccess;
-    if (nodes != nullptr && kernels != nullptr) {
-        cudaGraph_t graph;
-        const cudaGraphNode_t* deps = nullptr;
-        size_t n = 0;
-        e = capture_info(body, &graph, &deps, &n);
-        if (e == cudaSuccess) e = cudaGraphGetNodes(graph, nullptr, &n);
-        if (e == cudaSuccess && n > 0) {
-            cudaGraphNode_t* all = new cudaGraphNode_t[n];
-            e = cudaGraphGetNodes(graph, all, &n);
-            for (size_t i = 0; e == cudaSuccess && i < n; ++i) {
-                cudaGraphNodeType t;
-                e = cudaGraphNodeGetType(all[i], &t);
-                *nodes += 1;
-                *kernels += t == cudaGraphNodeTypeKernel;
-            }
-            delete[] all;
-        }
-    }
+    if (nodes != nullptr && kernels != nullptr)
+        e = static_cast<cudaError_t>(hso_capture_counts(body, nodes, kernels));
     cudaGraph_t graph;
     cudaError_t e_end = cudaStreamEndCapture(body, &graph);
     return e != cudaSuccess ? e : e_end;

@@ -16,12 +16,20 @@ Host-side glue between the map model and the device BA solver
     ``cfg.loba_pose_writeback``) and outlier-observation stripping.
 
 The problem goes to the device in one non-blocking copy per member and the
-solver's outputs come back in one device→host copy.  Host iteration order is fixed
+solver's outputs come back in one device→host copy.  The solve itself is,
+for a handler whose step runs as a graph, a captured CUDA graph from the
+handler's cache keyed by ``(n_kf, n_pts, n_iter, focal, strip_px)``
+(:func:`captured_local_ba`, the JAX package's ``_jitted_local_ba``): one
+replay instead of some four thousand launches, captured at the first solve
+of its key, so a handler pays only for the keys it solves.  The point-sharded
+solve stays eager (it runs collectives).  Host iteration order is fixed
 (``set`` of ints, counts sorted by (-count, keyframe)), so the problem is the
 same from run to run.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -29,10 +37,28 @@ import torch
 from hso_tpu_torch.ba.distributed import distributed_bundle_adjustment
 from hso_tpu_torch.ba.local_ba import local_bundle_adjustment
 from hso_tpu_torch.math import se3np
+from hso_tpu_torch.pipeline.step_graph import StepGraph
 
 #: optional observer called with (args, kwargs) of every windowed-BA solve
 #: (the tests and the bench read the problem through it)
 solve_capture = None
+
+
+#: the solver's static arguments, in the order of a cache key
+BA_KEY = ("n_kf", "n_pts", "n_iter", "focal", "strip_px")
+
+
+def captured_local_ba(cache: dict, device, **kw) -> StepGraph:
+    """The windowed BA solve for the static arguments ``kw`` (:data:`BA_KEY`)
+    from ``cache``, made on first use: a :class:`StepGraph` with one instance
+    (the handler reads each result back before the next solve), captured at
+    its first call and replayed after.  On the CPU the instance calls the
+    solver on its staged inputs."""
+    key = tuple(kw[k] for k in BA_KEY)
+    if key not in cache:
+        cache[key] = StepGraph(functools.partial(local_bundle_adjustment, **kw), device,
+                               instances=1, image=False)
+    return cache[key]
 
 
 def covisible_keyframes(handler, center) -> list[int]:
@@ -188,6 +214,8 @@ def run_local_ba(handler, center) -> dict | None:
         # point-sharded over the ranks of the default process group (one
         # rank without a group); every rank gets the whole result
         out = distributed_bundle_adjustment(*args_c, n_devices=cfg.ba_n_devices, **kw)
+    elif handler._graph:
+        out = captured_local_ba(handler._ba_solves, handler.device, **kw)(*args_c)
     else:
         out = local_bundle_adjustment(*args_c, **kw)
 

@@ -49,10 +49,12 @@ event then waits 3 more times (``host_prep``, ``fused_dispatch``,
 ``sync_packed``), and more at the stages of an event.  With tracing off no
 stage waits.
 
-The step and the relocalization tracker are built once per handler.
+The step and the relocalization tracker are built once per handler.  With
+the step as a graph the windowed BA solve is a captured graph too, one per
+problem key, captured at the handler's first solve of that key (``ba_glue``).
 ``cfg.distributed_ba`` routes the windowed BA through the point-sharded
 solver of :mod:`hso_tpu_torch.ba.distributed` (one shard without a process
-group).
+group), always eagerly.
 
 Point success/fail counters accumulate on the device (``acc``, integer
 additions) and are drained into the host table at keyframe events: the host
@@ -220,12 +222,15 @@ def _clone_tree(tree):
 class FrameHandler:
     def __init__(self, cam, cfg: Config | None = None, device="cuda", graph: bool = True):
         """``graph``: on a CUDA device the per-frame step is captured in CUDA
-        graphs (:class:`~hso_tpu_torch.pipeline.step_graph.StepGraph`); False
-        runs the eager step.  On the CPU the step is eager."""
+        graphs (:class:`~hso_tpu_torch.pipeline.step_graph.StepGraph`) and so
+        is the windowed BA solve of a keyframe event
+        (:func:`~hso_tpu_torch.pipeline.ba_glue.captured_local_ba`); False
+        runs both eagerly.  On the CPU both are eager."""
         self.cam = cam
         self.cfg = cfg or Config()
         self.device = torch.device(device)
         self._graph = bool(graph) and self.device.type == "cuda"
+        self._ba_solves = {}     # captured windowed-BA solves by key (ba_glue)
         self.points = PointTable(self.cfg.n_points_ba_max * 2)
         self.kfs = KeyframeWindow(k_all_max=self.cfg.max_n_kfs, recent=SEED_RING)
         self.points.kfs = self.kfs

@@ -21,11 +21,16 @@ order:
 
 The map state ``st`` is laid out by
 :func:`hso_tpu_torch.utils.checkpoint.scan_state_from_checkpoint`.  Its
-counters ``kf_count`` and ``batch`` are host ints (they advance by one a
-keyframe), so the body never waits on the device; the activation cursor is
-a device tensor.  Masked writes go to the last point row (the trash row),
-which is reset to an empty row afterwards, so repeated indices never reach a
-live row.  Compaction keeps the candidates in index order, then the other
+counters ``kf_count`` and ``batch`` and the activation cursor are 0-d int32
+tensors on the device, as in the JAX bench, and the body indexes with them as
+tensors of shape (1,): PyTorch's indexing reads a 0-d integer tensor used as a
+subscript on the host, which waits for the device and which a CUDA graph
+could not replay.  Numbers are written with ``fill_``/``index_fill_``: set by
+indexing, a number becomes a host tensor copied to the device.  So the body
+reads and copies nothing on the host and is captured whole
+(:func:`hso_tpu_torch.pipeline.scan.make_keyframe_body`).  Masked writes go
+to the last point row (the trash row), which is reset to an empty row
+afterwards, so repeated indices never reach a live row.  Compaction keeps the candidates in index order, then the other
 rows in index order, by a cumulative-sum rank (no sort, no tie to break).
 Every function returns new tensors and leaves its inputs untouched.
 """
@@ -62,11 +67,16 @@ def first_rows(cand: torch.Tensor, k: int) -> torch.Tensor:
     return order[:k]
 
 
-def _put(dst: torch.Tensor, idx, src) -> torch.Tensor:
-    """A copy of ``dst`` with rows ``idx`` set to ``src`` (a tensor or a
-    Python number: a number is a fill, not a copy from the host)."""
+def _put(dst: torch.Tensor, idx: torch.Tensor, src) -> torch.Tensor:
+    """A copy of ``dst`` with rows ``idx`` (an index tensor of shape (n,)) set
+    to ``src``, a tensor or a Python number.  A number is filled in on the
+    device: given to indexing it would become a host tensor copied to the
+    device, a copy that waits for it."""
     out = dst.clone()
-    out[idx] = src.to(dst.dtype) if isinstance(src, torch.Tensor) else src
+    if isinstance(src, torch.Tensor):
+        out[idx] = src.to(dst.dtype)
+    else:
+        out.index_fill_(0, idx, src)
     return out
 
 
@@ -89,19 +99,21 @@ def keyframe_work(st, seeds, out, cam, cfg):
     kw = int(cfg.n_kfs_window)
     p_ba = int(cfg.n_points_ba_max)
     focal = float(cam.focal_mean)
-    kf_idx = int(st["kf_count"])
-    batch = int(st["batch"])
-    slot = batch % SEED_RING
+    kf_idx = st["kf_count"]                       # 0-d int32 on the device
+    batch = st["batch"]
+    slot = torch.remainder(batch, SEED_RING)
+    kf_row = kf_idx.reshape(1).to(i64)            # subscripts of shape (1,)
+    slot_row = slot.reshape(1).to(i64)
 
     # ---- 1. pose registry and seed-host ring
-    st["kf_poses"] = _put(st["kf_poses"], kf_idx, out["T_new"])
-    st["kf_exposure"] = _put(st["kf_exposure"], kf_idx, out["exposure"])
-    st["ring_T"] = _put(st["ring_T"], slot, out["T_new"])
-    st["ring_exp"] = _put(st["ring_exp"], slot, out["exposure"])
-    st["ring_kf"] = _put(st["ring_kf"], slot, kf_idx)
+    st["kf_poses"] = _put(st["kf_poses"], kf_row, out["T_new"])
+    st["kf_exposure"] = _put(st["kf_exposure"], kf_row, out["exposure"])
+    st["ring_T"] = _put(st["ring_T"], slot_row, out["T_new"])
+    st["ring_exp"] = _put(st["ring_exp"], slot_row, out["exposure"])
+    st["ring_kf"] = _put(st["ring_kf"], slot_row, kf_idx)
 
     # ---- 2. register this keyframe's inlier matches into its ring column
-    col = kf_idx % kw
+    col = torch.remainder(kf_idx, kw).reshape(1).to(i64)
     ok_slot = out["success"] & out["inlier"]
     pid = torch.where(ok_slot, out["cid"].to(i64),
                       torch.full_like(out["cid"], trash, dtype=i64))
@@ -110,12 +122,11 @@ def keyframe_work(st, seeds, out, cam, cfg):
     row = torch.cat([meas, out["grad_cur"], (out["species"] == 1).to(f32)[:, None],
                      out["level"].to(f32)[:, None], ok_slot.to(f32)[:, None]], dim=1)
     ba_pack = st["ba_pack"].clone()
-    ba_pack[:, col] = 0.0
+    ba_pack.index_fill_(1, col, 0.0)
     ba_pack[pid, col] = row
-    ba_pack[trash] = 0.0
+    ba_pack[trash].fill_(0.0)
 
-    # ---- 3. the window: the last K keyframes by ring column (made on the
-    # device from host ints: a copy from the host would wait for the device)
+    # ---- 3. the window: the last K keyframes by ring column
     base = kf_idx + 1 - kw
     g_col = base + torch.remainder(torch.arange(kw, device=dev) - base, kw)
     col_live = g_col >= 0
@@ -123,7 +134,7 @@ def keyframe_work(st, seeds, out, cam, cfg):
     g_col = torch.clamp_min(g_col, 0)
     T_win = st["kf_poses"][g_col]
     host_kf = st["host_kf"]
-    pvalid = (st["light"] >= 8) & (host_kf >= max(base, 0)) & (host_kf <= kf_idx)
+    pvalid = (st["light"] >= 8) & (host_kf >= torch.clamp_min(base, 0)) & (host_kf <= kf_idx)
     host_slot = torch.remainder(torch.clamp_min(host_kf, 0), kw)
     obs_on = (ba_pack[..., 6] > 0.5) & col_live[None, :]
     obs_valid = (obs_on & pvalid[:, None]
@@ -196,7 +207,7 @@ def keyframe_work(st, seeds, out, cam, cfg):
     }
     for k, (vals, empty) in writes.items():
         t = _put(st[k], tgt, vals)
-        t[trash] = empty                 # the trash row absorbed the masked writes
+        t[trash].fill_(empty)            # the trash row absorbed the masked writes
         st[k] = t
     n_act = torch.sum(taken.to(i32))
     st["cursor"] = torch.remainder(st["cursor"] + n_act, R_RES).to(i32)
@@ -209,9 +220,7 @@ def keyframe_work(st, seeds, out, cam, cfg):
     f_det = cam.cam2world(det["px"]).to(f32)
     # the ring slot, batch and threshold go in as device scalars: init_seeds
     # would copy host numbers to the device, and such a copy waits for it
-    seeds3 = init_seeds(seeds2, det, data["pyr"], f_det,
-                        torch.full((), slot, dtype=i32, device=dev),
-                        torch.full((), batch + 1, dtype=i32, device=dev), out["depth_mean"],
+    seeds3 = init_seeds(seeds2, det, data["pyr"], f_det, slot, batch + 1, out["depth_mean"],
                         0.5 * torch.clamp_min(out["depth_min"], 1e-3),
                         torch.full((), cfg.seed_converge_sigma2_thresh, dtype=f32, device=dev),
                         n_levels=DETECT_LEVELS)

@@ -4,8 +4,9 @@ the keyframe work on a schedule the host knows.
 At every frame ``run_scan`` runs the whole per-frame step
 (:func:`hso_tpu_torch.pipeline.fused_step.make_frame_step`) against the map
 state carried in ``st``; on the frames where ``i % KF_EVERY == KF_EVERY - 1``
-it then runs :func:`hso_tpu_torch.pipeline.keyframe.keyframe_work`, which
-mutates the map (BA write-back, activated seeds, new seeds).  The carry is
+(the schedule stays on the host, as the JAX bench's ``kf_sched`` is an input)
+it then runs the keyframe body, :func:`hso_tpu_torch.pipeline.keyframe.keyframe_work`,
+which mutates the map (BA write-back, activated seeds, new seeds).  The carry is
 the pose, the pyramid and its statistics, the exposure, the tracking
 reference (``obs``), the seed table, the point success/fail counters
 (``acc``) and the map state ``st``.
@@ -14,8 +15,14 @@ On the card the step is a :class:`~hso_tpu_torch.pipeline.step_graph.StepGraph`
 by default (``make_scan_step(..., graph=False)`` gives the eager step): a
 frame is one graph replay and waits on nothing; the eager step waits for the
 device at its FC/IC choice (and on an FC frame once an LM iteration).  The
-keyframe body waits on nothing.  A graph's outputs are overwritten two frames
-later: the carry lives one frame, and the per-frame records are copies.
+keyframe body is the step's ``keyframe_body`` (:func:`make_keyframe_body`),
+on the card also a ``StepGraph``: two captured graphs of the whole body (the
+JAX bench's ``lax.cond`` around it, ``bench.py:533-534``) used in turns, one
+replay an event, with the members of the step's output it reads
+(:data:`KF_OUT_KEYS`, :data:`KF_DATA_KEYS`) staged into it.  Neither body
+waits on the device.  A graph's outputs are overwritten two calls later: the
+carry lives one frame (the map state one event), and the per-frame and
+per-event records are copies.
 """
 
 from __future__ import annotations
@@ -32,6 +39,10 @@ SNAP_FROM_ST = ("light", "pos_w", "pt_pack", "species", "kf_poses", "kf_exposure
                 "ring_exp")
 #: keyframe cadence of the scan (one keyframe event every KF_EVERY frames)
 KF_EVERY = 6
+#: the step outputs the keyframe body reads, and the members of ``out["data"]``
+KF_OUT_KEYS = ("T_new", "exposure", "success", "inlier", "cid", "f_cur", "grad_cur", "species",
+               "level", "px", "depth_mean", "depth_min")
+KF_DATA_KEYS = ("pyr", "sobel_x", "sobel_y", "grad_mean")
 
 
 def frame_grid(cam, cfg) -> tuple:
@@ -46,11 +57,35 @@ def obs_slots(cam, cfg) -> int:
     return max(cfg.n_fts_max, grid[1] * grid[2])
 
 
+def keyframe_inputs(out) -> dict:
+    """What the keyframe body reads of a step's output ``out``."""
+    sub = {k: out[k] for k in KF_OUT_KEYS}
+    sub["data"] = {k: out["data"][k] for k in KF_DATA_KEYS}
+    return sub
+
+
+def make_keyframe_body(cam, cfg, device="cuda", graph: bool = True):
+    """The keyframe work for ``cam``/``cfg`` as the scan calls it,
+    ``body(st, seeds, keyframe_inputs(out)) -> (st', seeds', chk, stats)``.
+    On a CUDA device it is captured in CUDA graphs (a :class:`StepGraph`
+    whose first argument is not an image) unless ``graph`` is False; on the
+    CPU it is the eager body."""
+    def body(st, seeds, kf_in):
+        return keyframe_work(st, seeds, kf_in, cam, cfg)
+
+    if graph and torch.device(device).type == "cuda":
+        return StepGraph(body, device, image=False)
+    return body
+
+
 def make_scan_step(cam, cfg, device="cuda", whole: bool = True, graph: bool = True):
     """The whole per-frame step for ``cam``/``cfg`` as the scan calls it; with
     ``whole=False`` its tracking half (``make_track_step``).  On a CUDA device
     the step is captured in CUDA graphs (:class:`StepGraph`) unless ``graph``
-    is False; on the CPU it is the eager step."""
+    is False; on the CPU it is the eager step.  The whole step carries the
+    scan's keyframe body as its attribute ``keyframe_body``
+    (:func:`make_keyframe_body` with the same ``graph``), built once with it
+    so that every run of the scan reuses the body's captures."""
     make = make_frame_step if whole else make_track_step
     step = make(
         cam, frame_grid(cam, cfg), cfg.klt_max_level, cfg.klt_min_level, cfg.coarse_n_iter,
@@ -59,7 +94,9 @@ def make_scan_step(cam, cfg, device="cuda", whole: bool = True, graph: bool = Tr
         align_max_iter=cfg.align_max_iter, patch_closest=(cfg.patch_source == "closest"),
         device=device)
     if graph and torch.device(device).type == "cuda":
-        return StepGraph(step, device)
+        step = StepGraph(step, device)
+    if whole:
+        step.keyframe_body = make_keyframe_body(cam, cfg, device, graph)
     return step
 
 
@@ -84,9 +121,14 @@ def run_scan(step, carry, frames, cam, cfg, px_error_angle, on_frame=None):
     error), ``n_inliers`` (N,), ``carry`` the state after the last frame and
     ``kf_stats`` the keyframe work's statistics, one dict per event; all
     device tensors.  ``on_frame(i, keyframe, out, carry)``, when given, is
-    called after each frame's work with the step's output and the new carry."""
+    called after each frame's work with the step's output and the new carry.
+    The keyframe body is ``step.keyframe_body``; a step without one (a step
+    made elsewhere) gets the eager body."""
     pin_float32_matmul()
     dev = carry["acc"].device
+    body = getattr(step, "keyframe_body", None)
+    if body is None:
+        body = make_keyframe_body(cam, cfg, dev, graph=False)
     T_rel = torch.eye(3, 4, dtype=torch.float32, device=dev)
     traj, chks, inliers, kf_stats = [], [], [], []
     for i, img in enumerate(frames):
@@ -100,8 +142,8 @@ def run_scan(step, carry, frames, cam, cfg, px_error_angle, on_frame=None):
         kf = is_keyframe(i)
         kf_chk = torch.zeros((), dtype=torch.float32, device=dev)
         if kf:
-            st, seeds, kf_chk, stats = keyframe_work(st, seeds, out, cam, cfg)
-            kf_stats.append(stats)
+            st, seeds, kf_chk, stats = body(st, seeds, keyframe_inputs(out))
+            kf_stats.append({k: v.clone() for k, v in stats.items()})
         chk = (kf_chk + out["n_seeds_updated"].to(torch.float32)
                + out["n_matches"].to(torch.float32) + out["err_px"])
         carry = dict(T=out["T_new"], pyr=data["pyr"], grad_mean=data["grad_mean"],

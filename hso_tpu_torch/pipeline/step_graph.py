@@ -33,6 +33,15 @@ instance runs again: the result of a call stays valid through the next call
 and until the call after it.  That covers a scan's carry and the lag-1 loop's
 pending frame; a caller that keeps a result longer copies it.
 
+The class is generic over its callable: the scan's keyframe body
+(:func:`hso_tpu_torch.pipeline.scan.make_keyframe_body`, the JAX bench's
+``lax.cond`` around the keyframe work) and the handler's windowed-BA solve
+(:func:`hso_tpu_torch.pipeline.ba_glue.captured_local_ba`, the JAX package's
+``_jitted_local_ba``) are captured by it too.  ``image=False`` stages the first
+argument as it comes (not as an image), and ``instances`` sets the number of
+instances used in turns: a caller that reads each result before the next
+call (the BA solve) needs one.
+
 On the card a capture, instantiation or replay that fails raises; nothing
 falls back to the eager step (the eager step is the step itself, not wrapped).
 On a CPU device (tests) an instance's replay calls the step on its input
@@ -123,11 +132,11 @@ class _Instance:
     """One captured graph: its input tensors, its outputs, its IF-node scope
     (body streams and pool) and the graph itself."""
 
-    def __init__(self, args, device):
+    def __init__(self, args, device, image: bool = True):
         self.device = device
-        head, *rest = args
-        self.inputs = (_input_like(head, device, as_float32=True),
-                       *(_tree_map(lambda x: _input_like(x, device), a) for a in rest))
+        self.inputs = tuple(
+            _tree_map(lambda x, head=(k == 0): _input_like(x, device, image and head), a)
+            for k, a in enumerate(args))
         self._input_storages = {t.untyped_storage().data_ptr() for t in _leaves(self.inputs)}
         self.out = None
         self.nodes = None
@@ -155,7 +164,9 @@ class _Instance:
         with control_flow.if_node_scope(self.scope), \
                 torch.cuda.graph(self.graph, stream=self.scope.capture_stream):
             out = step(*self.inputs)
-        self.nodes = (self.scope.leaf_nodes, self.scope.leaf_kernels)
+            # a graph without IF nodes is counted whole, else its leaf IF bodies
+            self.nodes = (control_flow.capture_counts(self.scope) if not self.scope.routes
+                          else (self.scope.leaf_nodes, self.scope.leaf_kernels))
         weakref.finalize(self, _release, self.graph, self.device.index, self.scope.pool,
                          self.scope.routes).atexit = False
         for t in _leaves(out):
@@ -178,19 +189,26 @@ class _Instance:
 
 class StepGraph:
     """A frame step captured as two alternating CUDA graphs (see the module
-    docstring); called with the step's arguments, returns its output dict."""
+    docstring); called with the step's arguments, returns its output dict.
+    ``instances``: graphs used in turns (a result lives through
+    ``instances - 1`` further calls); ``image``: the first argument is an
+    image, staged as float32."""
 
-    def __init__(self, step, device="cuda"):
+    def __init__(self, step, device="cuda", instances: int = 2, image: bool = True):
+        if instances < 1:
+            raise ValueError(f"a StepGraph needs at least one instance, not {instances}")
         self.step = step
+        self.n_instances = int(instances)
+        self.image = bool(image)
         self.device = torch.device(device)
         if self.device.type == "cuda" and self.device.index is None:
             self.device = torch.device("cuda", torch.cuda.current_device())
         self._instances = None
         self._turn = 0
-        #: seconds of the warm-up and of the two captures; bytes the two
-        #: captures added to the device memory reserved; (nodes, kernel
-        #: nodes) of one instance's IF bodies that hold no IF node (every
-        #: iteration of a gated loop counted)
+        #: seconds of the warm-up and of the captures; bytes the captures
+        #: added to the device memory reserved; (nodes, kernel nodes) of one
+        #: instance: of its whole graph when it holds no IF node, else of its
+        #: IF bodies that hold none (every iteration of a gated loop counted)
         self.warm_up_seconds = None
         self.capture_seconds = None
         self.pool_bytes = None
@@ -203,7 +221,7 @@ class StepGraph:
 
         t0 = time.perf_counter()
         _cuda_build.lib()
-        inst = _Instance(args, self.device)
+        inst = _Instance(args, self.device, self.image)
         inst.stage(args)
         cur = torch.cuda.current_stream(self.device)
         side = torch.cuda.Stream(self.device)
@@ -215,17 +233,18 @@ class StepGraph:
         self.warm_up_seconds = time.perf_counter() - t0
 
     def capture(self, *args) -> None:
-        """Warm up (on the card, unless done) and capture the two instances
-        from the shapes of ``args``."""
+        """Warm up (on the card, unless done) and capture the instances from
+        the shapes of ``args``."""
         if self.device.type != "cuda":
-            self._instances = [_Instance(args, self.device) for _ in range(2)]
+            self._instances = [_Instance(args, self.device, self.image)
+                               for _ in range(self.n_instances)]
             return
         if self.warm_up_seconds is None:
             self.warm_up(*args)
         t0 = time.perf_counter()
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(self.device)
-        instances = [_Instance(args, self.device) for _ in range(2)]
+        instances = [_Instance(args, self.device, self.image) for _ in range(self.n_instances)]
         # no garbage collection while capturing: an old handler's graph freed
         # then would call the CUDA runtime in the middle of the capture
         gc.collect()
@@ -249,6 +268,6 @@ class StepGraph:
         if self._instances is None:
             self.capture(*args)
         inst = self._instances[self._turn]
-        self._turn ^= 1
+        self._turn = (self._turn + 1) % len(self._instances)
         inst.stage(args)
         return inst.run(self.step)

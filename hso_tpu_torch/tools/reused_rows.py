@@ -14,6 +14,8 @@ The tool runs the scan twice from ``artifacts/bench_boot.npz``: as the port
 runs it, and with each event's activated rows given back the cells they held
 when the event began (a wrapper around ``keyframe_work`` here, as the bench
 would keep them but for this frame's registration and the BA's inlier bits).
+The wrapper reads each event's figures on the host, so it is the scan's
+keyframe body eagerly (the step's ``keyframe_body``), not a captured graph.
 It prints one JSON object: per keyframe event the activations, the rows that
 held a valid point before (reused), the observation cells those rows held,
 and BA chi2 init/final, for both runs; and the ATE of both runs.
@@ -32,20 +34,21 @@ ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)
 sys.path.insert(0, ROOT)
 
 
-def watched(keyframe, log: list, keep_old_cells: bool):
-    """``keyframe_work`` that logs each event's activations and, with
-    ``keep_old_cells``, gives the rows it activated into back the observation
-    cells they held when the event began."""
+def watched(keyframe, log: list, keep_old_cells: bool, cam, cfg):
+    """The scan's keyframe body, ``keyframe_work`` for ``cam``/``cfg``, that
+    logs each event's activations and, with ``keep_old_cells``, gives the rows
+    it activated into back the observation cells they held when the event
+    began."""
     R_RES = keyframe.R_RES
 
-    def kf_work(st, seeds, out, cam, cfg):
+    def kf_work(st, seeds, out):
         st2, seeds2, chk, stats = keyframe.keyframe_work(st, seeds, out, cam, cfg)
         dev = st["light"].device
         p0 = st["light"].shape[0] - R_RES - 1
         n_act = int(stats["activated"])
         tgt = p0 + torch.remainder(st["cursor"].to(torch.int64)
                                    + torch.arange(n_act, device=dev), R_RES)
-        log.append(dict(kf_idx=st["kf_count"], activated=n_act,
+        log.append(dict(kf_idx=int(st["kf_count"]), activated=n_act,
                         reused=int((st["light"][tgt] >= 8).sum()),
                         old_cells=int((st["ba_pack"][tgt, :, 6] > 0.5).sum()),
                         chi2_init=float(stats["chi2_init"]),
@@ -86,12 +89,8 @@ def main() -> int:
     doc = {"card": card_line() if device.type == "cuda" else "cpu", "frames": args.frames}
     for name, keep in (("port", False), ("old_cells_kept", True)):
         log = []
-        old = scan.keyframe_work
-        scan.keyframe_work = watched(keyframe, log, keep)
-        try:
-            res = scan.run_scan(step, carry0, frames, cam, cfg, meta["px_error_angle"])
-        finally:
-            scan.keyframe_work = old
+        step.keyframe_body = watched(keyframe, log, keep, cam, cfg)
+        res = scan.run_scan(step, carry0, frames, cam, cfg, meta["px_error_angle"])
         doc[name] = dict(events=log, ate_rmse_m=scan_ate(res["traj"].cpu().numpy(), gt),
                          min_inliers=int(res["n_inliers"].min()))
     text = json.dumps(doc)

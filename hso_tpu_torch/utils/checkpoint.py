@@ -211,8 +211,10 @@ def scan_state_from_checkpoint(path: str, cam, cfg, device="cuda"):
     ``ring_T``, ``ring_exp``), the seed ring's keyframe indices ``ring_kf``,
     the BA anchoring (``f_host``, ``host_kf`` padded with -1, ``idist``), the
     (P_T, K, 7) observation ring ``ba_pack`` (K = ``cfg.n_kfs_window``), the
-    activation cursor (a device int32), and the host counters ``kf_count``
-    and ``batch`` (Python ints: they advance by one a keyframe)."""
+    activation cursor and the counters ``kf_count`` and ``batch``, each a
+    0-d int32 tensor on ``device`` as the JAX bench carries them
+    (``bench.py:353-354``), so the keyframe body reads none of them on the
+    host."""
     dev = torch.device(device)
     (snap, prev_pyr, grad_mean, intensity, exposure, T_prev, prev_obs, frame_count, seeds,
      seed_ring, batch_counter, px_error_angle) = frame_state_from_checkpoint(path, cam, cfg, dev)
@@ -236,8 +238,8 @@ def scan_state_from_checkpoint(path: str, cam, cfg, device="cuda"):
     st["idist"] = pad(t(z["pt_idist"], torch.float32))
     st["ba_pack"] = t(initial_obs_grid(z, p_t, int(cfg.n_kfs_window)), torch.float32)
     st["cursor"] = torch.zeros((), dtype=torch.int32, device=dev)
-    st["kf_count"] = int(z["kf_count"])
-    st["batch"] = int(batch_counter)
+    st["kf_count"] = torch.full((), int(z["kf_count"]), dtype=torch.int32, device=dev)
+    st["batch"] = torch.full((), int(batch_counter), dtype=torch.int32, device=dev)
     carry = dict(T=T_prev, pyr=prev_pyr,
                  grad_mean=torch.tensor(grad_mean, dtype=torch.float32, device=dev),
                  intensity=torch.tensor(intensity, dtype=torch.float32, device=dev),

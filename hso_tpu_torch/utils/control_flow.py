@@ -140,6 +140,19 @@ def _if_node(pred: torch.Tensor, negate: bool):
         scope.leaf_kernels += kernels.value
 
 
+def capture_counts(scope: IfNodeScope) -> tuple:
+    """(nodes, kernel nodes) of the graph being captured on the scope's
+    capture stream, which must hold no IF node (counting one that does
+    fails on the card)."""
+    from hso_tpu_torch import _cuda_build
+
+    nodes, kernels = ctypes.c_longlong(0), ctypes.c_longlong(0)
+    _cuda_build.check(_cuda_build.lib().hso_capture_counts(
+        scope.capture_stream.cuda_stream, ctypes.byref(nodes), ctypes.byref(kernels)),
+        "hso_capture_counts")
+    return nodes.value, kernels.value
+
+
 def _leaves(tree) -> list:
     if isinstance(tree, torch.Tensor):
         return [tree]

@@ -169,10 +169,12 @@ def test_kernel_sources_are_in_the_package():
     assert "arch=compute_90a,code=sm_90a" in _cuda_build.NVCC_FLAGS
     # the six kernels take at least nine arguments each (pointers and the
     # stream declared one by one); K1's multi-job entry a table of jobs; the
-    # plans, K3's override, the probes and the IF nodes of a captured step fewer
+    # plans, K3's override, the probes, the IF nodes of a captured step and the
+    # node count of a capture fewer
     helpers = {"hso_coarse_launch_plan", "hso_coarse_plan_override", "hso_probe_latency",
                "hso_probe_tma", "hso_zmncc_launch_plan", "hso_align_launch_plan",
-               "hso_window_launch_plan", "hso_if_node_begin", "hso_if_node_end"}
+               "hso_window_launch_plan", "hso_if_node_begin", "hso_if_node_end",
+               "hso_capture_counts"}
     assert helpers < set(_cuda_build._SIGNATURES)
     jobs = _cuda_build._SIGNATURES["hso_extract_windows_jobs"]
     assert jobs[0] is ctypes.POINTER(_cuda_build.WindowJob) and len(jobs) == 4

@@ -103,8 +103,10 @@ def test_scan_state_is_the_bench_state(world):
         np.testing.assert_array_equal(_np(st_t[k]), st_j[k], err_msg=k)
         assert _np(st_t[k]).dtype == st_j[k].dtype, k
     np.testing.assert_allclose(_np(st_t["pos_w"]), st_j["pos_w"], rtol=1e-6, atol=1e-6)
-    assert st_t["kf_count"] == int(st_j["kf_count"]) == 6
-    assert st_t["batch"] == int(st_j["batch"]) == 5
+    for k, n in (("kf_count", 6), ("batch", 5)):
+        assert st_t[k].dtype == torch.int32 and st_t[k].shape == (), k   # device scalars
+        assert st_j[k].dtype == np.int32 and st_j[k].shape == (), k
+        assert int(st_t[k]) == int(st_j[k]) == n, k
     p_t = st_t["light"].shape[0]
     assert p_t == 4096 + kfw.R_RES + 1
     assert world["carry"]["acc"].shape == (2, p_t)
@@ -128,8 +130,9 @@ def test_integer_and_copied_members_are_exact(both, key):
 
 def test_counters_and_cursor(both):
     st_t, st_j = both["torch"][0], both["jax"]["st"]
-    assert st_t["kf_count"] == int(st_j["kf_count"]) == 7
-    assert st_t["batch"] == int(st_j["batch"]) == 6
+    for k, n in (("kf_count", 7), ("batch", 6)):
+        assert st_t[k].dtype == torch.int32 and st_t[k].shape == (), k   # device scalars
+        assert int(st_t[k]) == int(st_j[k]) == n, k
     assert int(st_t["cursor"]) == int(st_j["cursor"]) == int(both["torch"][3]["activated"])
 
 

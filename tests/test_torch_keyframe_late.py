@@ -73,8 +73,7 @@ def late():
 
     js = JaxScan(cs.BOOT_NPZ)
     c0 = js.carry0()
-    st_j = {k: _j(v, c0[8][k]) if isinstance(v, torch.Tensor) else jnp.int32(v)
-            for k, v in st.items()}
+    st_j = {k: _j(v, c0[8][k]) for k, v in st.items()}
     seeds_j = {k: _j(v, c0[6][k]) for k, v in out["seeds"].items()}
     out_j = {k: _j(out[k]) for k in OUT_KEYS}
     d = out["data"]
@@ -94,7 +93,7 @@ def test_the_state_is_late(late):
     st = late["st_in"]
     p0 = st["light"].shape[0] - kfw.R_RES - 1
     kw = Config().n_kfs_window
-    assert st["kf_count"] + 1 - kw > 0, "the window is not full yet"
+    assert int(st["kf_count"]) + 1 - kw > 0, "the window is not full yet"
     assert (_np(st["light"])[p0:p0 + kfw.R_RES] >= 8).all(), "the activation ring is not full"
     # the ring has wrapped: its rows were first written 0, 1, ... and the
     # cursor has come round to below the rows already written
@@ -142,8 +141,9 @@ def test_integer_and_copied_members_are_exact(late, key):
 
 def test_counters_and_cursor(late):
     st_t, st_j = late["torch"][0], late["jax"]["st"]
-    assert st_t["kf_count"] == int(st_j["kf_count"]) == late["st_in"]["kf_count"] + 1
-    assert st_t["batch"] == int(st_j["batch"])
+    for k in ("kf_count", "batch"):
+        assert st_t[k].dtype == torch.int32 and st_t[k].shape == (), k   # device scalars
+        assert int(st_t[k]) == int(st_j[k]) == int(late["st_in"][k]) + 1, k
     assert int(st_t["cursor"]) == int(st_j["cursor"])
     n_act = int(late["torch"][3]["activated"])
     assert int(st_t["cursor"]) == (int(late["st_in"]["cursor"]) + n_act) % kfw.R_RES
@@ -160,7 +160,7 @@ def test_ba_write_back(late):
     np.testing.assert_allclose(float(stats["chi2_final"]), cf, rtol=1e-3)
     assert cf <= ci and float(stats["chi2_final"]) <= float(stats["chi2_init"])
     # the oldest N_FIX_GAUGE keyframes of the window are held, the newer move
-    kf = late["st_in"]["kf_count"]
+    kf = int(late["st_in"]["kf_count"])
     base = kf + 1 - Config().n_kfs_window
     moved = np.abs(_np(st_t["kf_poses"]) - _np(late["st_in"]["kf_poses"])).max(axis=(1, 2))
     assert moved[:base + kfw.N_FIX_GAUGE].max() == 0.0

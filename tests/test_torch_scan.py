@@ -63,7 +63,9 @@ def test_schedule_has_one_keyframe_event(port):
     assert [scan.is_keyframe(i) for i in range(N)] == [False] * 5 + [True, False]
     assert len(res["kf_stats"]) == 1
     st = res["carry"]["st"]
-    assert st["kf_count"] == 7 and st["batch"] == 6
+    for k, n in (("kf_count", 7), ("batch", 6)):
+        assert st[k].dtype == torch.int32 and st[k].shape == (), k     # device scalars
+        assert int(st[k]) == n, k
 
 
 def test_poses_before_and_after_the_event(port, ref):
