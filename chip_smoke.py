@@ -49,8 +49,15 @@ keyframe frame apart), device kernels and busy ms a frame, warm-up and
 capture seconds, pool bytes and captured nodes of both graphs, and K2's
 launches captured into the keyframe graph.  The handler phase holds every
 captured BA solve to the eager solver on the same problem, bit for bit, and
-times a keyframe event on a graph handler and on an eager one.  In a child
-process that has run no profiler session (``--profiler-fault``), the step
+times a keyframe event on a graph handler and on an eager one.  The
+handler's map work at a keyframe event and its backfill sweeps are captured
+graphs too (``pipeline/kf_map.py``: one graph for the map work, one a count
+of pre-frames swept); the handler and lag-1 phases hold every map and
+backfill call of their runs, as ``kf_map.call_capture`` saw it, to the eager
+bodies bit for bit, and the resumed loop's counted frames call the graphs
+under ``set_sync_debug_mode("error")``; the ``kernels`` summary counts K2,
+K4 and K6 captured into them (``handler_map_graphs_captured_launches``).
+In a child process that has run no profiler session (``--profiler-fault``), the step
 graph is timed over 20 calls, an empty ``torch.profiler`` session runs, and
 the same 20 calls are timed again (the ``profiler_fault`` line, after
 ``distributed_ba``).
@@ -151,7 +158,7 @@ from hso_tpu_torch import testing  # noqa: E402
 from hso_tpu_torch.ops import align_cuda, epipolar, epipolar_cuda, window_cuda  # noqa: E402
 from hso_tpu_torch.ops.gatherless import clip_anchor  # noqa: E402
 from hso_tpu_torch.ba.local_ba import local_bundle_adjustment  # noqa: E402
-from hso_tpu_torch.pipeline import ba_glue, keyframe, scan  # noqa: E402
+from hso_tpu_torch.pipeline import ba_glue, keyframe, kf_map, scan  # noqa: E402
 from hso_tpu_torch.pipeline.step_graph import StepGraph  # noqa: E402
 from hso_tpu_torch.pipeline.frame_handler import (RESULT_FAILURE, RESULT_FRAME,  # noqa: E402
                                                   RESULT_KEYFRAME, RESULT_NO_KEYFRAME,
@@ -1560,21 +1567,25 @@ def tree_bits_differ(a, b) -> list:
 
 
 class StrictCalls:
-    """A step (and its keyframe body) called under
-    ``torch.cuda.set_sync_debug_mode("error")``: any host wait inside a call
-    raises."""
+    """A step (and its keyframe body), or a handler's map or backfill graph,
+    called under ``torch.cuda.set_sync_debug_mode("error")``: any host wait
+    inside a call raises.  The mode it found is put back after each call;
+    ``calls`` counts them."""
 
     def __init__(self, fn, body=None):
         self.fn = fn
+        self.calls = 0
         if body is not None:
             self.keyframe_body = StrictCalls(body)
 
     def __call__(self, *a):
+        mode = torch.cuda.get_sync_debug_mode()
         torch.cuda.set_sync_debug_mode("error")
         try:
+            self.calls += 1
             return self.fn(*a)
         finally:
-            torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.set_sync_debug_mode(mode)
 
 
 N_FAULT_REPLAYS = 20     #: timed calls of one graph before and after an empty profiler session
@@ -1808,6 +1819,7 @@ class SiteTally:
     def __init__(self, keep: int = 16):
         self.ctx = ["-"]
         self.counts = {}
+        self.captured = {}
         self.calls = {}
         self.keep = keep
 
@@ -1821,7 +1833,10 @@ class SiteTally:
                 kept = self.calls.setdefault((kernel, label), [])
                 # a call captured into a graph has no data yet: counted, not kept
                 capturing = torch.cuda.is_available() and torch.cuda.is_current_stream_capturing()
-                if len(kept) < self.keep and not capturing:
+                if capturing:
+                    c = self.captured.setdefault(kernel, {})
+                    c[label] = c.get(label, 0) + 1
+                elif len(kept) < self.keep:
                     kept.append((args, kw))
             return fn(*args, **kw)
         return wrapped
@@ -1855,6 +1870,11 @@ class SiteTally:
 
     def total(self, kernel) -> int:
         return self.launches(kernel)
+
+    def captured_launches(self, kernel, *contexts) -> int:
+        """Calls of ``kernel`` captured into a graph from one of ``contexts``."""
+        return sum(n for label, n in self.captured.get(kernel, {}).items()
+                   if label.split(":", 1)[0] in contexts)
 
 
 def handler_sites(tally):
@@ -2262,6 +2282,49 @@ def hold_ba_solves(h, problems, device) -> dict:
                         for k, g in graphs.items()})
 
 
+def kf_map_key(kind, args):
+    """The cache key of a map or backfill call as ``kf_map.call_capture``
+    saw it."""
+    return "map" if kind == "map" else ("backfill", len(args[4]))
+
+
+def hold_kf_map_calls(h, calls, device) -> dict:
+    """Every map and backfill call a handler made (``calls``: the staged
+    arguments ``kf_map.call_capture`` saw, copied): its captured graph from
+    ``h._kf_graphs`` against the eager body on the same arguments, bit for
+    bit; and what each captured graph holds."""
+    assert calls, "the handler made no map or backfill call"
+    graphs = h._kf_graphs
+    keys = sorted({kf_map_key(kind, a) for kind, a in calls}, key=str)
+    assert sorted(graphs, key=str) == keys, f"captured {sorted(graphs, key=str)} for {keys}"
+    for j, (kind, args) in enumerate(calls):
+        if kind == "map":
+            graph = kf_map.captured_kf_map(graphs, device, h.cam, h.cfg)
+            body = functools.partial(kf_map.map_body, cam=h.cam, cfg=h.cfg)
+        else:
+            graph = kf_map.captured_backfill(graphs, device, h.cam, len(args[4]))
+            body = functools.partial(kf_map.backfill_body, cam=h.cam)
+        got = clone_tree(graph(*args))
+        want = kf_map.eager(body, device)(*args)
+        bad = tree_bits_differ(got, want)
+        assert not bad, f"{kind} call {j} ({kf_map_key(kind, args)}): captured != eager in {bad}"
+    return dict(calls=len(calls), keys_called=[str(kf_map_key(k, a)) for k, a in calls],
+                captured_bitwise_equal_to_eager=True,
+                graphs={str(k): dict(warm_up_seconds=g.warm_up_seconds,
+                                     capture_seconds=g.capture_seconds,
+                                     pool_bytes=g.pool_bytes,
+                                     nodes=None if g.nodes is None else g.nodes[0],
+                                     kernel_nodes=None if g.nodes is None else g.nodes[1])
+                        for k, g in graphs.items()})
+
+
+def recording_kf_map_calls(calls):
+    """The patch context that copies every map and backfill call's staged
+    arguments into ``calls``."""
+    return patched([(kf_map, "call_capture",
+                     lambda kind, args: calls.append((kind, clone_tree(args))))])
+
+
 def handler_phase(cam, cfg, scene, device, smi, results, later):
     """``FrameHandler.add_image``, the entry point users call, on the card.
 
@@ -2283,17 +2346,25 @@ def handler_phase(cam, cfg, scene, device, smi, results, later):
     the eager solver bit for bit (:func:`hold_ba_solves`), and the resumed
     loop's warm and timed frames run again on an eager handler
     (``graph=False``): the same poses, its ms a frame with and without an
-    event beside the graph handler's.  Returns
-    (launches of the live run, {results key: launches at that shape})."""
+    event beside the graph handler's.  The map work and the backfill sweeps
+    of an event are captured graphs as well: every map and backfill call of
+    the live run is held, on the arguments ``kf_map.call_capture`` saw, to
+    the eager bodies bit for bit (:func:`hold_kf_map_calls`: warm-up and
+    capture seconds, pool bytes and nodes a key), and the resumed loop's
+    counted frames call the warm events' graphs under
+    ``set_sync_debug_mode("error")``.  Returns (launches of the live run,
+    {results key: launches at that shape}, {kernel: calls captured into the
+    map and backfill graphs})."""
     from hso_tpu_torch.pipeline.frame_handler import FrameHandler
 
     gt = trajectory(N_LIVE + 1 + N_RECOVER)
     frames = render_frames(scene, gt)
     tally = SiteTally()
     problems = []            # every windowed-BA solve's staged problem, copied
+    kf_calls = []            # every map and backfill call's staged arguments, copied
     ba_glue.solve_capture = lambda a, kw: problems.append((clone_tree(a), dict(kw)))
     try:
-        with handler_sites(tally):
+        with handler_sites(tally), recording_kf_map_calls(kf_calls):
             h = tally.trace(FrameHandler(cam, cfg, device=device))
             zero_counters()
             live = drive_handler(h, frames[:N_LIVE], device)
@@ -2306,6 +2377,15 @@ def handler_phase(cam, cfg, scene, device, smi, results, later):
     finally:
         ba_glue.solve_capture = None
     ba_solves = hold_ba_solves(h, problems, device)
+    kf_map_calls = hold_kf_map_calls(h, kf_calls, device)
+    del kf_calls
+    # K2, K4, K6 captured into the map and backfill graphs (their warm-ups
+    # and the eager bootstrap batch are not captures)
+    map_captured = {name: tally.captured_launches(name, "keyframe", "backfill")
+                    for name in COUNTERS}
+    if device.type == "cuda":
+        for name in ("pack_level_windows", "align_match", "zmncc_line_scores"):
+            assert map_captured[name] > 0, f"{name} was not captured into a map graph"
     for name in FRAME_KERNELS:
         assert launches_live[name] > 0, f"kernel {name} was never launched by the handler"
     for name in COUNTERS:
@@ -2398,10 +2478,21 @@ def handler_phase(cam, cfg, scene, device, smi, results, later):
         np.asarray(hr.trajectory[0][1])))
     assert d_map < 0.05, f"relocalization by the map is {d_map} from the tracked pose"
     counted = []                           # (status, syncs by line, copy waits) a frame
+    # the map and backfill graphs of the warm events called under
+    # set_sync_debug_mode("error") in these frames: a host wait raises
+    strict = ({key: StrictCalls(g) for key, g in hr._kf_graphs.items()}
+              if device.type == "cuda" else {})
+    hr._kf_graphs.update(strict)
     for j in range(k, k + N_HOST_COUNTED):
         rec, sites, waits = count_host_waits(
             lambda: drive_handler(hr, frames_r[j:j + 1], device, first_ts=z_start + j))
         counted.append((rec[0]["status"], sites, waits))
+    hr._kf_graphs.update({key: sc.fn for key, sc in strict.items()})
+    strict_calls = {str(key): sc.calls for key, sc in strict.items()}
+    if strict:
+        assert strict_calls["map"] > 0 and any(
+            n for key, n in strict_calls.items() if key != "map"), \
+            f"no event of the counted frames went through the strict graphs: {strict_calls}"
     k += N_HOST_COUNTED
     host_parts = PartTimer(device).run(hr, frames_r[k:k + N_HOST_PARTS], z_start + k)
     k += N_HOST_PARTS
@@ -2479,9 +2570,12 @@ def handler_phase(cam, cfg, scene, device, smi, results, later):
                         stream_syncs_by_line=sync_sites,
                         host_ms_by_part=host_parts),
          ba_solves=ba_solves,
+         kf_map=dict(kf_map_calls, strict_calls_sync_debug_error=strict_calls,
+                     host_waits_in_map_and_backfill_calls=0 if strict else "not measured",
+                     captured_launches=map_captured),
          launches=launches_live,
          launches_by_site={name: dict(sorted(c.items())) for name, c in tally.counts.items()})
-    return launches_live, shape_launches
+    return launches_live, shape_launches, map_captured
 
 
 # ------------------------------------------------------------------ pipelined phase
@@ -2552,7 +2646,9 @@ def pipelined_phase(cam, cfg, scene, device, smi) -> dict:
     the frames; each of K1–K6 launched), synchronous, lag-1, synchronous,
     and a third lag-1 run with its host syncs counted a call (1 where the
     finalised frame had no event: the previous
-    frame's ``packed`` copy, asserted).  Gates: one result per frame in order,
+    frame's ``packed`` copy, asserted).  Every map and backfill call of the
+    first lag-1 run is held to the eager bodies bit for bit
+    (:func:`hold_kf_map_calls`).  Gates: one result per frame in order,
     ≥ 50 inliers a frame, ATE < 0.10 m, the lag-1 runs bit for bit alike, and
     after every event the next dispatched seed table holds that event's new
     batch.  Returns the launches of the first lag-1 run."""
@@ -2560,9 +2656,13 @@ def pipelined_phase(cam, cfg, scene, device, smi) -> dict:
     gt = trajectory(z_start + N_HOST_WARM + N_PIPE)[z_start:]
     frames = render_frames(scene, gt)
     runs = {}
+    kf_calls = []            # the first lag-1 run's map and backfill calls, copied
     zero_counters()
-    runs["pipelined_1"] = pipelined_run(cam, cfg, frames, z_start, device)
+    with recording_kf_map_calls(kf_calls):
+        runs["pipelined_1"] = pipelined_run(cam, cfg, frames, z_start, device)
     launches = read_counters()
+    kf_map_calls = hold_kf_map_calls(runs["pipelined_1"]["h"], kf_calls, device)
+    del kf_calls
     for name in FRAME_KERNELS if device.type == "cuda" else ():
         assert launches[name] > 0, f"kernel {name} was never launched by the lag-1 loop"
     runs["sync_1"] = pipelined_run(cam, cfg, frames, z_start, device, pipelined=False)
@@ -2613,6 +2713,7 @@ def pipelined_phase(cam, cfg, scene, device, smi) -> dict:
         assert n_sync + waits == 1 and waits == 1, \
             f"lag-1 loop: a call without an event waited at {sites}, {waits} copy waits"
     emit("pipelined", card=smi, first_frame=z_start, runs=summary, launches=launches,
+         kf_map=kf_map_calls,
          second_run_bitwise_equal=True,
          host_syncs=dict(calls=len(counted), statuses=[c[0] for c in counted],
                          stream_syncs_a_call=[c[1] for c in counted],
@@ -3220,7 +3321,8 @@ def profilers_phase(device, smi) -> dict:
          full_equals_unpatched=True, names_restored=True,
          rows=[{"variant": r["variant"], **{x: r[x] for x in keep}} for r in abl["rows"]])
     keep = ("device_ms_per_frame", "device_ms_marginal", "eager_ms_per_frame",
-            "eager_ms_marginal", "device_kernels_per_frame", "device_busy_ms_per_frame",
+            "eager_ms_marginal", "device_kernels_per_frame",
+            "device_kernels_per_frame_samples", "device_busy_ms_per_frame",
             "own_kernel_device_ms", "launches_per_frame")
     emit("profilers", part="sweep", card=smi, s=S_SWEEP, frames=N_SWEEP,
          kernels_at_s=sweep_kernels(device),
@@ -3512,8 +3614,8 @@ def main() -> int:
     later = []
     launches_graph, launches_kf_graph = graph_phase(cam, cfg, scene, device, smi, later)
     launches_scan, tallies_scan = scan_phase(cam, cfg, scene, device, smi, results, later)
-    launches_handler, handler_shapes = handler_phase(cam, cfg, scene, device, smi, results,
-                                                     later)
+    launches_handler, handler_shapes, map_captured = handler_phase(cam, cfg, scene, device,
+                                                                   smi, results, later)
     launches_pipelined = pipelined_phase(cam, cfg, scene, device, smi)
     distributed_phase(smi)
     profiler_fault_phase(smi)
@@ -3564,6 +3666,7 @@ def main() -> int:
             graph_phase_captured_launches=launches_graph[name],
             keyframe_graph_captured_launches=launches_kf_graph[name],
             handler_phase_launches=launches_handler[name],
+            handler_map_graphs_captured_launches=map_captured[name],
             pipelined_phase_launches=launches_pipelined[name],
             dataset_phase_launches=launches_dataset[name],
             cameras_phase_launches=launches_cameras[name],

@@ -51,7 +51,11 @@ stage waits.
 
 The step and the relocalization tracker are built once per handler.  With
 the step as a graph the windowed BA solve is a captured graph too, one per
-problem key, captured at the handler's first solve of that key (``ba_glue``).
+problem key, captured at the handler's first solve of that key
+(``ba_glue``), and so are the map work of a keyframe event and its backfill
+sweeps (``kf_map``: one graph for the map work, one a count of pre-frames
+swept), each captured at its first event; the bootstrap's seed batch stays
+eager.
 ``cfg.distributed_ba`` routes the windowed BA through the point-sharded
 solver of :mod:`hso_tpu_torch.ba.distributed` (one shard without a process
 group), always eagerly.
@@ -83,6 +87,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import functools
 import os
 import tempfile
 import time
@@ -106,9 +111,7 @@ from hso_tpu_torch.mapmodel.structures import (
 from hso_tpu_torch.mapping.depth_filter import (
     empty_seeds,
     gather_seed_windows,
-    harvest_and_prune,
     init_seeds,
-    update_seeds,
 )
 from hso_tpu_torch.math import se3np
 from hso_tpu_torch.math.epipolar_geometry import recover_pose_twoview, triangulate_midpoint
@@ -116,7 +119,7 @@ from hso_tpu_torch.ops.detect import detect_features, occupancy_grid
 from hso_tpu_torch.ops.gatherless import clip_anchor, extract_windows
 from hso_tpu_torch.ops.klt import track_klt
 from hso_tpu_torch.ops.warp import memoize_level_windows_packed
-from hso_tpu_torch.pipeline import ba_glue
+from hso_tpu_torch.pipeline import ba_glue, kf_map
 from hso_tpu_torch.photometric import OnlinePhotometricCalibrator
 from hso_tpu_torch.pipeline.fused_step import make_frame_step, pack_light, scatter_rows
 from hso_tpu_torch.pipeline.step_graph import StepGraph
@@ -223,14 +226,16 @@ class FrameHandler:
     def __init__(self, cam, cfg: Config | None = None, device="cuda", graph: bool = True):
         """``graph``: on a CUDA device the per-frame step is captured in CUDA
         graphs (:class:`~hso_tpu_torch.pipeline.step_graph.StepGraph`) and so
-        is the windowed BA solve of a keyframe event
-        (:func:`~hso_tpu_torch.pipeline.ba_glue.captured_local_ba`); False
-        runs both eagerly.  On the CPU both are eager."""
+        are the windowed BA solve of a keyframe event
+        (:func:`~hso_tpu_torch.pipeline.ba_glue.captured_local_ba`), its map
+        work and its backfill sweeps (:mod:`~hso_tpu_torch.pipeline.kf_map`);
+        False runs them eagerly.  On the CPU all are eager."""
         self.cam = cam
         self.cfg = cfg or Config()
         self.device = torch.device(device)
         self._graph = bool(graph) and self.device.type == "cuda"
         self._ba_solves = {}     # captured windowed-BA solves by key (ba_glue)
+        self._kf_graphs = {}     # captured map work and backfill sweeps by key (kf_map)
         self.points = PointTable(self.cfg.n_points_ba_max * 2)
         self.kfs = KeyframeWindow(k_all_max=self.cfg.max_n_kfs, recent=SEED_RING)
         self.points.kfs = self.kfs
@@ -256,7 +261,6 @@ class FrameHandler:
         self._grid = (cell, -(-cam.height // cell), -(-cam.width // cell))
         # the step writes up to C kept matches into the frame's obs slots
         self._n_obs_pad = max(self.cfg.n_fts_max, self._grid[1] * self._grid[2])
-        self._occ_cell = 32
         self._init_px = None
         # retained recent frames for the pre-frame seed backfill
         self.pre_frames: collections.deque = collections.deque(
@@ -1317,46 +1321,37 @@ class FrameHandler:
     def _kf_map_dispatch(self, frame: Frame, out, depth_mean, depth_min,
                          converge_thresh) -> dict:
         """Enqueue the keyframe's device work (patch-source windows, seed
-        harvest, detection with the device-side occupancy, the new seed batch,
-        the pre-frame backfill) with its copies back started, before any host
-        read.  The host completes it in :meth:`_kf_map_finish` after the BA."""
+        harvest, detection with the device-side occupancy, the new seed batch:
+        :func:`~hso_tpu_torch.pipeline.kf_map.map_body`; then the pre-frame
+        backfill) with its copies back started, before any host read.  With
+        the step as a graph both are captured graphs (:mod:`kf_map`), one
+        replay each.  The host completes it in :meth:`_kf_map_finish` after
+        the BA."""
         kf_pack = _Pending(out["kf_pack"])
-        # per-slot patch-source windows (read by _refresh_patch_sources)
-        refresh_buf = memoize_level_windows_packed(frame.data["pyr"], out["px"], out["level"])
-
-        # seed harvest (activation threshold from the convergence-rate
-        # statistic)
         seeds_before = self.seeds
+        # activation threshold from the convergence-rate statistic
         min_act = float(np.clip(0.7 * self.mean_converge_frames, 3.0, 8.0))
-        self.seeds, bundle = harvest_and_prune(
-            self.seeds, self.batch_counter, self._h2d(self._ring_poses()),
-            self.cfg.max_seed_kf_batches, min_act, float(self.cam.focal_mean),
-        )
-
-        # detection with the device-side occupancy: the step's kept matches
-        # and the matched seeds
-        px_occ = torch.cat([out["px"], out["seed_match_px"]], dim=0)
-        v_occ = torch.cat([out["success"] & out["inlier"], out["seed_matched"]], dim=0)
-        occ = occupancy_grid(px_occ, v_occ, self.cam.height, self.cam.width, self._occ_cell)
-        d = frame.data
-        det = detect_features(
-            d["pyr"][:3], d["sobel_x"], d["sobel_y"], d["grad_mean"], occ,
-            n_out=self.cfg.n_fts_max,
-            with_gradient=bool(self.cfg.use_gradient_features))
-        f_det = self.cam.cam2world(det["px"]).to(torch.float32)
-
-        # the new seed batch, hosted in this keyframe (its index is the one
-        # kfs.add is about to give)
+        # the new seed batch is hosted in this keyframe (its index is the one
+        # kfs.add is about to give); the harvest sees the ring before it
         kf_idx = len(self.kfs.frames)
-        self.batch_counter += 1
         ring_slot = kf_idx % SEED_RING
+        args = (self.seeds, *kf_map.map_inputs(out, frame.data), self._ring_poses(),
+                self._scalar(self.batch_counter, torch.int32),
+                self._scalar(ring_slot, torch.int32), self._scalar(min_act),
+                self._scalar(float(depth_mean)), self._scalar(float(max(depth_min, 1e-3))),
+                self._scalar(float(converge_thresh)))
+        if kf_map.call_capture is not None:
+            kf_map.call_capture("map", args)
+        if self._graph:
+            work = kf_map.captured_kf_map(self._kf_graphs, self.device, self.cam, self.cfg)
+        else:
+            work = kf_map.eager(functools.partial(kf_map.map_body, cam=self.cam, cfg=self.cfg),
+                                self.device)
+        self.seeds, bundle, refresh_buf = work(*args)
+        kf_dev = {"kf_pack": kf_pack, "bundle": _Pending(bundle), "seeds_before": seeds_before,
+                  "refresh_buf": _Pending(refresh_buf)}
+        self.batch_counter += 1
         self.seed_ring[ring_slot] = kf_idx
-        self.seeds = init_seeds(
-            self.seeds, det, frame.data["pyr"], f_det,
-            self._scalar(ring_slot, torch.int32), self._scalar(self.batch_counter, torch.int32),
-            self._scalar(float(depth_mean)), self._scalar(float(max(depth_min, 1e-3))),
-            self._scalar(float(converge_thresh)),
-        )
         # the backfill needs the new keyframe's pose in the ring before kfs.add
         ring_T = self._ring_poses()
         ring_T[ring_slot] = frame.T_f_w.astype(np.float32)
@@ -1364,9 +1359,12 @@ class FrameHandler:
             [self.kfs.exposure[i] if 0 <= i < len(self.kfs.exposure) else 1.0
              for i in self.seed_ring], np.float32)
         ring_exp[ring_slot] = frame.exposure
-        self._backfill_new_seeds(frame, ring_T=self._h2d(ring_T), ring_exp=self._h2d(ring_exp))
-        return {"kf_pack": kf_pack, "bundle": _Pending(bundle), "seeds_before": seeds_before,
-                "refresh_buf": _Pending(refresh_buf)}
+        self._backfill_new_seeds(frame, ring_T=ring_T, ring_exp=ring_exp)
+        if self._graph:
+            # the table is a graph's output, which the next event of the same
+            # key overwrites: the handler keeps a copy, as of the step's
+            self.seeds = _clone_tree(self.seeds)
+        return kf_dev
 
     def _kf_map_finish(self, kf_dev: dict) -> int:
         """Host side of the seed harvest: the TEMPORARY lifecycle, promotion
@@ -1436,6 +1434,8 @@ class FrameHandler:
 
     def _add_keyframe_seeds(self, frame: Frame, depth_mean, depth_min,
                             converge_thresh) -> None:
+        """The bootstrap's seed batch (once a map, with host-side occupancy):
+        eager, its backfill too."""
         # occupancy: current observations + matched seed positions
         occ_px = frame.obs["px"][frame.obs["valid"]]
         if self._last_seed_matched is not None:
@@ -1454,32 +1454,36 @@ class FrameHandler:
             self._scalar(float(depth_mean)), self._scalar(float(max(depth_min, 1e-3))),
             self._scalar(float(converge_thresh)),
         )
-        self._backfill_new_seeds(frame)
+        self._backfill_new_seeds(frame, eager=True)
 
-    def _backfill_new_seeds(self, frame: Frame, ring_T=None, ring_exp=None) -> None:
+    def _backfill_new_seeds(self, frame: Frame, ring_T=None, ring_exp=None,
+                            eager: bool = False) -> None:
         """Sweep seeds against the retained pre-frames, synchronously at
-        keyframe creation.  Two classes of seed take the sweep: the batch just
-        created (the pre-frames predate its host, so parallax is immediate)
-        and older seeds that never fused a measurement (retrying a frame
-        cannot fuse it twice; a seed with successes is excluded)."""
-        new_mask = (
-            (self.seeds["batch_id"] == self.batch_counter)
-            | (self.seeds["n_updates"] < 0.5)
-        ) & self.seeds["valid"]
-        if ring_T is None:
-            ring_T = self._h2d(self._ring_poses())
-        if ring_exp is None:
-            ring_exp = self._h2d(self._ring_exposures())
-        for pf in list(self.pre_frames):
-            if pf is frame or pf.data is None or "sobel_x" not in pf.data:
-                continue
-            d = pf.data
-            self.seeds, _ = update_seeds(
-                self.seeds, ring_T, ring_exp,
-                d["pyr"], d["sobel_x"], d["sobel_y"],
-                self._h2d(pf.T_f_w, torch.float32), self._scalar(pf.exposure),
-                self._px_error_dev(), self.cam, update_mask=new_mask,
-            )
+        keyframe creation (:func:`~hso_tpu_torch.pipeline.kf_map.backfill_body`;
+        with the step as a graph, unless ``eager``, a captured graph a count
+        of pre-frames).  Two classes of seed take the sweep: the batch
+        just created (the pre-frames predate its host, so parallax is
+        immediate) and older seeds that never fused a measurement (retrying a
+        frame cannot fuse it twice; a seed with successes is excluded).
+        ``ring_T``/``ring_exp``: numpy arrays, by default the ring as it is."""
+        pre = tuple((pf.data["pyr"], pf.data["sobel_x"], pf.data["sobel_y"],
+                     pf.T_f_w.astype(np.float32), self._scalar(pf.exposure))
+                    for pf in self.pre_frames
+                    if pf is not frame and pf.data is not None and "sobel_x" in pf.data)
+        if not pre:
+            return
+        args = (self.seeds, self._scalar(self.batch_counter, torch.int32),
+                self._ring_poses() if ring_T is None else ring_T,
+                self._ring_exposures() if ring_exp is None else ring_exp, pre,
+                self._px_error_dev())
+        if kf_map.call_capture is not None:
+            kf_map.call_capture("backfill", args)
+        if self._graph and not eager:
+            sweeps = kf_map.captured_backfill(self._kf_graphs, self.device, self.cam, len(pre))
+        else:
+            sweeps = kf_map.eager(functools.partial(kf_map.backfill_body, cam=self.cam),
+                                  self.device)
+        self.seeds = sweeps(*args)
 
     def _px_error_dev(self) -> torch.Tensor:
         if self._px_err_dev is None:

@@ -39,12 +39,13 @@ def test_module_list_is_complete():
                  "hso_tpu_torch.run_dataset", "hso_tpu_torch.tools.make_synthetic_dataset",
                  "hso_tpu_torch.tools.boxseq_multirun", "hso_tpu_torch.io.native_reader",
                  "hso_tpu_torch.utils.live_view", "hso_tpu_torch.ba.distributed",
-                 "hso_tpu_torch.tools.multiproc_ba", "hso_tpu_torch.tools.host_loops"):
+                 "hso_tpu_torch.tools.multiproc_ba", "hso_tpu_torch.tools.host_loops",
+                 "hso_tpu_torch.pipeline.kf_map"):
         assert name in MODULES
 
 
 @pytest.mark.parametrize("module", ["pipeline/keyframe.py", "ba/local_ba.py", "ops/detect.py",
-                                    "pipeline/scan.py"])
+                                    "pipeline/scan.py", "pipeline/kf_map.py"])
 def test_keyframe_path_has_no_host_sync(module):
     """The keyframe body and what it calls never wait on the device: no
     ``.item()``, ``.tolist()``, ``nonzero``, ``bool(``/``int(``/``float(`` of a

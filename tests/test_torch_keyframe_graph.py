@@ -66,9 +66,11 @@ def _np(x):
     return x.numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
-def _in_k2_plain(frame) -> bool:
+def _in_twin(frame, twins=(K2_PLAIN,)) -> bool:
+    """Whether ``frame`` runs inside one of ``twins`` (code objects of kernels'
+    plain versions: on the card each is one launch)."""
     while frame is not None:
-        if frame.f_code is K2_PLAIN:
+        if frame.f_code in twins:
             return True
         frame = frame.f_back
     return False
@@ -76,17 +78,18 @@ def _in_k2_plain(frame) -> bool:
 
 class _DeviceReads(TorchDispatchMode):
     """Counts the scalar reads of PyTorch's own (``_local_scalar_dense``,
-    what ``.item()`` and C++ indexing call) outside K2's plain version, and
-    the tensors made from host data."""
+    what ``.item()`` and C++ indexing call) outside the plain versions
+    ``twins`` (K2's by default), and the tensors made from host data."""
 
-    def __init__(self):
+    def __init__(self, twins=(K2_PLAIN,)):
         super().__init__()
+        self.twins = tuple(twins)
         self.scalar_reads = 0
         self.uploads = 0
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         if func is torch.ops.aten._local_scalar_dense.default \
-                and not _in_k2_plain(sys._getframe(1)):
+                and not _in_twin(sys._getframe(1), self.twins):
             self.scalar_reads += 1
         if func is torch.ops.aten.lift_fresh.default:
             self.uploads += 1
@@ -94,14 +97,14 @@ class _DeviceReads(TorchDispatchMode):
 
 
 @contextlib.contextmanager
-def host_reads_forbidden(log):
-    """Every host read of a tensor raises, but inside K2's plain version;
-    ``log["kernel_twin"]`` counts those."""
+def host_reads_forbidden(log, twins=(K2_PLAIN,)):
+    """Every host read of a tensor raises, but inside the plain versions
+    ``twins`` (K2's by default); ``log["kernel_twin"]`` counts those."""
     saved = {n: getattr(torch.Tensor, n) for n in HOST_READS}
 
     def guarded(name, orig):
         def read(self, *a, **k):
-            if _in_k2_plain(sys._getframe(1)):
+            if _in_twin(sys._getframe(1), twins):
                 log["kernel_twin"] += 1
                 return orig(self, *a, **k)
             raise AssertionError(f"Tensor.{name} in the keyframe body")
