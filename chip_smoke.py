@@ -3062,8 +3062,7 @@ def dataset_phase(device, smi) -> tuple:
         assert run1["n_fail"] == 0, [r.status for r in run1["results"]]
         with open(vo.monitor.path) as fh:
             csv_rows = [line.rstrip("\n").split(",") for line in fh]
-        columns = [f"timer_{t}" for t in FrameHandler.TRACE_TIMERS] + \
-            [f"log_{n}" for n in FrameHandler.TRACE_LOGS]
+        columns = FrameHandler.trace_columns()
         assert csv_rows[0] == columns and len(csv_rows) == 1 + N_DATASET
         frame_ids = [float(r[columns.index("log_frame_id")]) for r in csv_rows[1:]]
         assert frame_ids == list(range(N_DATASET))

@@ -89,7 +89,29 @@ def covisible_keyframes(handler, center) -> list[int]:
 def run_local_ba(handler, center) -> dict | None:
     """Assemble the windowed BA problem around keyframe ``center``, solve it on
     ``handler.device`` and write the result back into the host map.  Returns
-    the problem's counts and chi2, or None when the window is too small."""
+    the problem's counts and chi2, or None when the window is too small.
+    Traced as three spans of the handler: ``ba_assemble`` (the window, the
+    points and the observation cells, on the host), ``ba_solve`` (the uploads
+    and the solve; its device span ``ba_solve``, the solve alone) and
+    ``ba_readback`` (the one read of the solver's outputs, the write-back and
+    the stripping); the problem's size is logged as ``ba_obs`` and
+    ``ba_points``."""
+    with handler._t("ba_assemble"):
+        prob = assemble(handler, center)
+    if prob is None:
+        return None
+    if handler.monitor is not None:
+        handler.monitor.log("ba_obs", prob["n_obs"])
+        handler.monitor.log("ba_points", len(prob["point_set"]))
+    with handler._t("ba_solve"):
+        out = solve(handler, prob)
+    with handler._t("ba_readback"):
+        return write_back(handler, center, prob, out)
+
+
+def assemble(handler, center) -> dict | None:
+    """The windowed BA problem around keyframe ``center`` as host arrays, with
+    the slots the write-back needs; None when the window is too small."""
     cfg = handler.cfg
     K = cfg.n_kfs_window
     P = cfg.n_points_ba_max
@@ -197,35 +219,56 @@ def run_local_ba(handler, center) -> dict | None:
     for p, s in point_slot.items():
         idist[s] = pts.idist[p]
         pvalid[s] = True
-
-    h2d = handler._h2d        # non-blocking copies from pinned memory on the card
-    obs = {"meas": h2d(meas), "grad": h2d(grad), "is_edgelet": h2d(is_edge),
-           "level": h2d(level), "valid": h2d(valid), "f_host": h2d(f_host),
-           "host": h2d(host_col)}
     n_iter = cfg.loba_num_iter
     if len(handler.kfs.frames) <= 5:
         n_iter = 30
-    args_c = (h2d(T_kf), h2d(free), h2d(idist), h2d(pvalid), obs)
-    kw = dict(n_kf=K, n_pts=P, n_iter=n_iter, focal=float(handler.cam.focal_mean),
-              strip_px=float(cfg.loba_thresh))
+    return dict(T_kf=T_kf, free=free, idist=idist, pvalid=pvalid,
+                obs=dict(meas=meas, grad=grad, is_edgelet=is_edge, level=level, valid=valid,
+                         f_host=f_host, host=host_col),
+                kw=dict(n_kf=K, n_pts=P, n_iter=n_iter, focal=float(handler.cam.focal_mean),
+                        strip_px=float(cfg.loba_thresh)),
+                n_obs=n_obs, point_set=point_set, point_slot=point_slot, kf_slot=kf_slot,
+                src_kf=src_kf, src_i=src_i)
+
+
+def solve(handler, prob: dict) -> dict:
+    """Upload the problem (one non-blocking copy a member on the card) and
+    solve it on ``handler.device``: the solver's device outputs."""
+    cfg = handler.cfg
+    h2d = handler._h2d        # non-blocking copies from pinned memory on the card
+    obs = {k: h2d(v) for k, v in prob["obs"].items()}
+    args_c = (h2d(prob["T_kf"]), h2d(prob["free"]), h2d(prob["idist"]), h2d(prob["pvalid"]),
+              obs)
+    kw = prob["kw"]
     if solve_capture is not None:
         solve_capture(args_c, kw)
     if cfg.distributed_ba:
         # point-sharded over the ranks of the default process group (one
         # rank without a group); every rank gets the whole result
-        out = distributed_bundle_adjustment(*args_c, n_devices=cfg.ba_n_devices, **kw)
+        work = functools.partial(distributed_bundle_adjustment, n_devices=cfg.ba_n_devices,
+                                 **kw)
     elif handler._graph:
-        out = captured_local_ba(handler._ba_solves, handler.device, **kw)(*args_c)
+        work = captured_local_ba(handler._ba_solves, handler.device, **kw)
     else:
-        out = local_bundle_adjustment(*args_c, **kw)
+        work = functools.partial(local_bundle_adjustment, **kw)
+    return handler._run(work, args_c, "ba_solve")
 
-    # ---- write-back (one device→host copy for all solver outputs) ----
+
+def write_back(handler, center, prob: dict, out: dict) -> dict:
+    """Read the solver's outputs in one device→host copy and write them into
+    the host map: inverse distances (poses only with
+    ``cfg.loba_pose_writeback``), then strip the outlier observations."""
+    cfg = handler.cfg
+    pts = handler.points
+    K, P = prob["kw"]["n_kf"], prob["kw"]["n_pts"]
+    kf_slot, point_slot, free = prob["kf_slot"], prob["point_slot"], prob["free"]
+    src_kf, src_i = prob["src_kf"], prob["src_i"]
     f32 = torch.float32
-    buf = torch.cat([
+    buf = handler._d2h(torch.cat([
         out["T_kf"].reshape(-1).to(f32), out["idist"].to(f32),
         out["obs_inlier"].reshape(-1).to(f32),
         torch.stack([out["chi2_init"], out["chi2_final"]]).to(f32),
-    ]).cpu().numpy().astype(np.float64)
+    ])).astype(np.float64)
     nT = K * 12
     T_new = buf[:nT].reshape(K, 3, 4)
     id_new = buf[nT:nT + P]
@@ -253,8 +296,8 @@ def run_local_ba(handler, center) -> dict | None:
         n_strip += 1
 
     return {
-        "n_obs": n_obs,
-        "n_points": len(point_set),
+        "n_obs": prob["n_obs"],
+        "n_points": len(prob["point_set"]),
         "n_kfs": len(kf_slot),
         "n_stripped": n_strip,
         "chi2_init": float(chi2_init),

@@ -42,12 +42,29 @@ tensor is copied to the host for the samples.  Images reach the pyramid as float
 float input is never cast to uint8.
 
 Tracing (``enable_tracing`` or the ``HSO_TRACE`` environment variable, CSV in
-``HSO_TRACE_DIR``): one CSV row a frame of the stage timers and logs in
-``TRACE_TIMERS``/``TRACE_LOGS``.  On the card each timed stage waits for the
-device at its end, so its time includes its device work: a frame without an
-event then waits 3 more times (``host_prep``, ``fused_dispatch``,
-``sync_packed``), and more at the stages of an event.  With tracing off no
-stage waits.
+``HSO_TRACE_DIR``; :mod:`hso_tpu_torch.utils.trace`): one CSV row a call, of
+the columns :meth:`FrameHandler.trace_columns` lists, written when the
+monitor closes.  Each stage is a span (``timer_<stage>``, host seconds; a
+stage entered twice in a call adds).  The device spans of ``TRACE_DEVICE``
+record CUDA events on the card around the launch of device work alone (a
+graph's replay after its inputs are staged; ``dev_<span>``, device seconds on
+the host's clock): ``step_graph`` the step, ``kf_map`` the event's map and
+backfill graphs and the harvest's gather, ``ba_solve`` the windowed BA's
+solve.  ``dev_busy``/``timer_host_self`` are the call's device-busy seconds
+and its host seconds that no device interval covers.  Every device→host read
+is a ``host_wait`` span and counts in ``log_host_waits``; ``log_h2d_bytes``
+counts the uploads, ``log_graph_replays``/``log_graph_captures`` the calls and
+captures of the handler's graphs, ``log_ba_obs``/``log_ba_points`` the
+windowed BA's problem.  A lag-1 call's row logs the frame it finalised.
+``fence=True`` (the default): each timed stage waits for the device at its
+end, so its time includes its device work: a frame without an event then
+waits 3 more times (``host_prep``, ``fused_dispatch``, ``sync_packed``), and
+more at the stages of an event.  ``fence=False`` waits nowhere but at the
+handler's own reads, so the lag-1 loop overlaps as it does untraced
+(``sync_packed`` is then the wait on the previous frame's ``packed``) and
+``monitor.idle_gaps(n)`` names the host span under each of the device's
+longest idle stretches (``run_dataset.py trace=1`` traces so).  With tracing
+off a span site costs one check.
 
 The step and the relocalization tracker are built once per handler.  With
 the step as a graph the windowed BA solve is a captured graph too, one per
@@ -126,6 +143,7 @@ from hso_tpu_torch.pipeline.step_graph import StepGraph
 from hso_tpu_torch.track.coarse_tracker import make_coarse_tracker
 from hso_tpu_torch.track.matcher import match_points, select_candidates
 from hso_tpu_torch.track.pose_optimizer import optimize_pose
+from hso_tpu_torch.utils.trace import ROW_FIGURES, PerformanceMonitor
 
 STAGE_FIRST = "first"
 STAGE_SECOND = "second"
@@ -150,18 +168,6 @@ class FrameResult:
     n_inliers: int = 0
     n_seeds_updated: int = 0
     err_px: float = 0.0
-
-
-def _fetch(*tensors) -> list:
-    """Device tensors as numpy arrays through ONE device→host copy (flattened
-    to float32: every value here is exact in float32)."""
-    flat = torch.cat([t.reshape(-1).to(torch.float32) for t in tensors]).cpu().numpy()
-    out, off = [], 0
-    for t in tensors:
-        n = t.numel()
-        out.append(flat[off:off + n].reshape(tuple(t.shape)))
-        off += n
-    return out
 
 
 def _bits(t: torch.Tensor) -> torch.Tensor:
@@ -212,6 +218,11 @@ class _Pending:
         if self.event is not None:
             self.event.synchronize()
         return self.host.numpy()
+
+
+def _read(x) -> np.ndarray:
+    """A tensor, or a copy started as :class:`_Pending`, on the host."""
+    return x.numpy() if isinstance(x, _Pending) else x.cpu().numpy()
 
 
 def _clone_tree(tree):
@@ -304,31 +315,60 @@ class FrameHandler:
             self.enable_tracing(trace_dir=os.environ.get("HSO_TRACE_DIR",
                                                          tempfile.gettempdir()))
 
-    #: stage timers and per-frame logs of the trace CSV (the JAX handler's
-    #: columns; the stages the whole step subsumes keep their column at 0)
+    #: the trace CSV's columns: host spans (``timer_``), device spans
+    #: (``dev_``) and per-call logs and counters (``log_``; the first eight
+    #: are the JAX handler's); the monitor appends its row figures
     TRACE_TIMERS = (
-        "pyramid_creation", "fused_frame_step", "sparse_img_align",
-        "reproject", "pose_optimizer", "local_ba", "seed_update",
-        "feature_detection", "tot_time",
+        "pyramid_creation", "local_ba", "feature_detection", "tot_time",
         "host_prep", "fused_dispatch", "sync_packed", "writeback",
-        "seed_rescue", "kf_event", "host_tail",
+        "seed_rescue", "kf_event", "ba_assemble", "ba_solve", "ba_readback",
+        "host_wait",
     )
+    TRACE_DEVICE = ("step_graph", "kf_map", "ba_solve")
     TRACE_LOGS = (
         "frame_id", "n_matches", "n_inliers", "n_seeds_updated", "n_kfs",
         "n_points", "is_keyframe", "err_px",
+        "host_waits", "h2d_bytes", "graph_replays", "graph_captures", "ba_obs", "ba_points",
     )
 
-    def enable_tracing(self, trace_name: str = "hso_tpu_trace",
-                       trace_dir: str | None = None) -> None:
-        from hso_tpu_torch.utils.trace import PerformanceMonitor
+    @classmethod
+    def trace_columns(cls) -> list[str]:
+        """The header of the trace CSV."""
+        return ([f"timer_{t}" for t in cls.TRACE_TIMERS] + [f"dev_{d}" for d in cls.TRACE_DEVICE]
+                + [f"log_{n}" for n in cls.TRACE_LOGS] + list(ROW_FIGURES))
 
-        mon = PerformanceMonitor(trace_name, trace_dir)
+    def enable_tracing(self, trace_name: str = "hso_tpu_trace",
+                       trace_dir: str | None = None, fence: bool = True) -> None:
+        """Trace every call into ``<trace_dir>/<trace_name>.csv``, written by
+        ``monitor.close()``.  ``fence``: each stage waits for the device at
+        its end, so its host time holds its device work (the default);
+        False waits nowhere but at the handler's own reads, for a trace of
+        the loop as it runs untraced (its idle gaps: ``monitor.idle_gaps``)."""
+        mon = PerformanceMonitor(trace_name, trace_dir, device=self.device, fence=fence)
         for t in self.TRACE_TIMERS:
             mon.add_timer(t)
+        for d in self.TRACE_DEVICE:
+            mon.add_device(d)
         for name in self.TRACE_LOGS:
             mon.add_log(name)
         mon.init()
         self.monitor = mon
+
+    def _end_row(self, t_start: float, frame_id=None, res: FrameResult | None = None) -> None:
+        """Close the monitor's row: the call's time, the frame it finalised
+        (``frame_id``, ``res``; none while the lag-1 loop fills) and the map."""
+        m = self.monitor
+        m.set_timer("tot_time", time.perf_counter() - t_start)
+        if res is not None:
+            m.log("frame_id", frame_id)
+            m.log("n_matches", res.n_matches)
+            m.log("n_inliers", res.n_inliers)
+            m.log("n_seeds_updated", res.n_seeds_updated)
+            m.log("is_keyframe", res.status == RESULT_KEYFRAME)
+            m.log("err_px", res.err_px)
+        m.log("n_kfs", len(self.kfs.frames))
+        m.log("n_points", int(self.points.valid.sum()))
+        m.update_finished()
 
     def _t(self, name: str):
         """Stage-timer context, fenced on the handler's device (a no-op when
@@ -336,6 +376,31 @@ class FrameHandler:
         if self.monitor is None:
             return contextlib.nullcontext()
         return self.monitor.timing(name, fence=self._fence)
+
+    def _dev(self, name: str):
+        """Device-span context: CUDA events around the device work launched
+        inside it (a no-op when tracing is off)."""
+        if self.monitor is None:
+            return contextlib.nullcontext()
+        return self.monitor.device(name)
+
+    def _run(self, work, args, span: str):
+        """``work(*args)``.  While tracing, the device span ``span`` covers
+        the launch alone: for a :class:`StepGraph`, its replay after its
+        inputs are staged (counted in ``graph_replays``, its capture in
+        ``graph_captures``)."""
+        m = self.monitor
+        if m is None:
+            return work(*args)
+        if isinstance(work, StepGraph):
+            if not work.captured:
+                m.count("graph_captures", work.n_instances)
+            inst = work.stage(*args)
+            m.count("graph_replays")
+            with m.device(span):
+                return work.run(inst)
+        with m.device(span):
+            return work(*args)
 
     # ------------------------------------------------------------------ utils
     def _h2d(self, a, dtype=None) -> torch.Tensor:
@@ -346,9 +411,33 @@ class FrameHandler:
         t = torch.from_numpy(np.array(a, copy=True))
         if dtype is not None:
             t = t.to(dtype)
+        if self.monitor is not None:
+            self.monitor.count("h2d_bytes", t.nbytes)
         if self.device.type == "cuda":
             return t.pin_memory().to(self.device, non_blocking=True)
         return t
+
+    def _d2h(self, x) -> np.ndarray:
+        """A device tensor, or a copy started as :class:`_Pending`, read on
+        the host: every wait of the handler on the device.  While tracing, a
+        ``host_wait`` span under the caller's span, counted in
+        ``host_waits``."""
+        if self.monitor is None:
+            return _read(x)
+        with self.monitor.timing("host_wait"):
+            self.monitor.count("host_waits")
+            return _read(x)
+
+    def _fetch(self, *tensors) -> list:
+        """Device tensors as numpy arrays through ONE device→host copy
+        (flattened to float32: every value here is exact in float32)."""
+        flat = self._d2h(torch.cat([t.reshape(-1).to(torch.float32) for t in tensors]))
+        out, off = [], 0
+        for t in tensors:
+            n = t.numel()
+            out.append(flat[off:off + n].reshape(tuple(t.shape)))
+            off += n
+        return out
 
     def _scalar(self, x, dtype=torch.float32) -> torch.Tensor:
         """A device scalar made on the device (no copy from the host)."""
@@ -371,7 +460,7 @@ class FrameHandler:
             data=data,
             obs=empty_obs(self._n_obs_pad),
         )
-        f.grad_mean, f.intensity_mean = (float(x) for x in _fetch(
+        f.grad_mean, f.intensity_mean = (float(x) for x in self._fetch(
             data["grad_mean"], data["intensity_mean"]))
         return f
 
@@ -394,8 +483,8 @@ class FrameHandler:
 
     # ------------------------------------------------------------------ stages
     def add_image(self, img_u8, ts: float = 0.0) -> FrameResult:
-        t_start = time.perf_counter()
         if self.monitor is not None:
+            t_start = time.perf_counter()
             self.monitor.new_frame()
         img_in = img_u8
         if self.photo is not None:
@@ -426,17 +515,7 @@ class FrameHandler:
             # with the applied correction
             self.photo.add_frame_samples(img_u8, frame.obs)
         if self.monitor is not None:
-            m = self.monitor
-            m.set_timer("tot_time", time.perf_counter() - t_start)
-            m.log("frame_id", self.frame_count - 1)
-            m.log("n_matches", res.n_matches)
-            m.log("n_inliers", res.n_inliers)
-            m.log("n_seeds_updated", res.n_seeds_updated)
-            m.log("n_kfs", len(self.kfs.frames))
-            m.log("n_points", int(self.points.valid.sum()))
-            m.log("is_keyframe", res.status == RESULT_KEYFRAME)
-            m.log("err_px", res.err_px)
-            m.update_finished()
+            self._end_row(t_start, self.frame_count - 1, res)
         return res
 
     # ---------------------------------------------------------- pipelined
@@ -462,8 +541,8 @@ class FrameHandler:
             return self._due.popleft()
 
         if self.monitor is not None:
+            t_start = time.perf_counter()
             self.monitor.new_frame()
-        t_start = time.perf_counter()
         if self._last_T_host is None:
             self._last_T_host = self.last_frame.T_f_w.copy()
         frame = Frame(frame_id=self.frame_count, timestamp=ts, T_f_w=se3np.identity(),
@@ -474,10 +553,12 @@ class FrameHandler:
                                      self._h2d(self.motion_model, torch.float32))
         frame.packed_copy = _Pending(out["packed"])     # waited on at finalise
 
+        done = None
         if self._pending is not None:
             pf, pout, pts_ = self._pending
             self._pending = None
-            self._due.append(self._finalize_pipelined(pf, pout, pts_))
+            done = (pf.frame_id, self._finalize_pipelined(pf, pout, pts_))
+            self._due.append(done[1])
             if self.stage != STAGE_DEFAULT:
                 # the speculative dispatch chained off a failed frame: discard
                 # it (the counters as before it, less the rows restarted
@@ -486,6 +567,9 @@ class FrameHandler:
                 self._acc = acc_before
                 self._zero_acc_rows(frame.acc_reset, record=False)
                 self._seeds_spec = None
+                if self.monitor is not None:
+                    # the row logs the failed frame; the reprocess logs its own
+                    self._end_row(t_start, *done)
                 self._due.append(self.add_image(img_u8, ts))
                 return self._due.popleft()
             if self.seeds is not pout["seeds"]:
@@ -498,8 +582,7 @@ class FrameHandler:
         self.last_frame = frame
         self.frame_count += 1
         if self.monitor is not None:
-            self.monitor.set_timer("tot_time", time.perf_counter() - t_start)
-            self.monitor.update_finished()
+            self._end_row(t_start, *(done or ()))
         return self._due.popleft() if self._due else None
 
     def flush(self) -> list[FrameResult]:
@@ -525,7 +608,7 @@ class FrameHandler:
 
     def _process_first(self, frame: Frame) -> FrameResult:
         det = self._detect(frame, None, n_levels=1, cell0=16)
-        px, valid = _fetch(det["px"], det["valid"])
+        px, valid = self._fetch(det["px"], det["valid"])
         valid = valid > 0.5
         if int(valid.sum()) < 100:
             return FrameResult(RESULT_NO_KEYFRAME, frame.T_f_w)
@@ -546,7 +629,7 @@ class FrameHandler:
             torch.ones((n,), dtype=torch.bool, device=self.device),
             px_prior=self._h2d(self._init_px_prior, torch.float32),
         )
-        ok, px_cur = _fetch(tr["ok"], tr["px_cur"])
+        ok, px_cur = self._fetch(tr["ok"], tr["px_cur"])
         ok = ok > 0.5
         # incremental prior for the next attempt
         self._init_px_prior = np.where(ok[:, None], px_cur, self._init_px_prior)
@@ -602,7 +685,7 @@ class FrameHandler:
         img0 = self.first_frame.data["pyr"][0]
         px_dev = self._h2d(px_ok[:m], torch.float32)
         au, av = clip_anchor(px_dev[:, 0], px_dev[:, 1], 24, 0, *img0.shape)
-        wins, au_np, av_np = _fetch(extract_windows(img0, au, av, 24), au, av)
+        wins, au_np, av_np = self._fetch(extract_windows(img0, au, av, 24), au, av)
         self.points.host_win[idx] = wins
         self.points.host_anchor[idx] = np.stack([au_np, av_np], axis=-1).astype(np.int32)
         self.points.init_patch_from_host(idx)
@@ -670,8 +753,9 @@ class FrameHandler:
                                         device=self.device)
 
         with self._t("fused_dispatch"):
-            out = step(img_dev, last.data["pyr"], prev_gm, T_prev, prev_obs, prev_it,
-                       exp_prev, I_rel, snap, seeds_in, self._px_error_dev(), self._acc)
+            out = self._run(step, (img_dev, last.data["pyr"], prev_gm, T_prev, prev_obs,
+                                   prev_it, exp_prev, I_rel, snap, seeds_in,
+                                   self._px_error_dev(), self._acc), "step_graph")
         if self._graph:
             # a graph's outputs are overwritten two dispatches later: what the
             # handler may keep longer (the frame's pyramid in the pre-frames
@@ -704,8 +788,7 @@ class FrameHandler:
         cfg = self.cfg
         with self._t("sync_packed"):
             copy = getattr(frame, "packed_copy", None)
-            packed = (copy.numpy() if copy is not None
-                      else out["packed"].cpu().numpy()).astype(np.float64)
+            packed = self._d2h(copy if copy is not None else out["packed"]).astype(np.float64)
 
         frame.T_f_w = se3np.normalize(packed[:12].reshape(3, 4))
         frame.exposure = float(packed[12])
@@ -807,7 +890,7 @@ class FrameHandler:
         C = self._grid[1] * self._grid[2]
         P = self.points.p_max
         S = int(self.seeds["valid"].shape[0])
-        kp = kp.numpy() if kp is not None else out["kf_pack"].cpu().numpy()
+        kp = self._d2h(kp if kp is not None else out["kf_pack"])
         sp = kp[: C * 11].reshape(C, 11)
         acc = kp[C * 11: C * 11 + 2 * P].reshape(2, P).astype(np.int64)
         off = C * 11 + 2 * P
@@ -824,7 +907,7 @@ class FrameHandler:
         """Fill the frame's host observation table with the step's kept
         matches (one copy of ``slot_pack`` unless ``sp`` is given)."""
         if sp is None:
-            sp = out["slot_pack"].cpu().numpy()
+            sp = self._d2h(out["slot_pack"])
         flags = sp[:, 10].astype(np.int32)
         keep = (flags & 3) == 3          # success & inlier
         w = np.where(keep)[0]
@@ -997,8 +1080,8 @@ class FrameHandler:
             self._h2d(o["grad"], torch.float32), self._h2d(o["species"] == 1),
             self._h2d(self.points.type[pid] == TYPE_TEMPORARY), self._h2d(ov),
             focal=float(self.cam.focal_mean), **kw)
-        T, inlier, n_inl, err = _fetch(pout["T_f_w"], pout["inlier"], pout["n_inliers"],
-                                       pout["err_final_px"])
+        T, inlier, n_inl, err = self._fetch(pout["T_f_w"], pout["inlier"], pout["n_inliers"],
+                                            pout["err_final_px"])
         return (se3np.normalize(T.astype(np.float64)), ov, inlier > 0.5, int(n_inl),
                 float(err))
 
@@ -1027,7 +1110,7 @@ class FrameHandler:
             edgelet_cos_angle=self.cfg.edgelet_angle,
             align_max_iter=self.cfg.align_max_iter,
         )
-        success, px, level, f_cur, grad_cur = _fetch(
+        success, px, level, f_cur, grad_cur = self._fetch(
             mout["success"], mout["px"], mout["level"], mout["f_cur"], mout["grad_cur"])
         live = np.arange(n_max) < n_live
         return {"live": live, "success": (success > 0.5) & live, "px": px,
@@ -1072,7 +1155,7 @@ class FrameHandler:
             self._h2d(pos_w), self._h2d(self.points.valid), self._h2d(priority),
             self._h2d(frame.T_f_w, torch.float32), self.cam, cell=cell, grid_h=gh, grid_w=gw,
         )
-        cell_valid, cell_point, cv2, cell_point2 = _fetch(
+        cell_valid, cell_point, cv2, cell_point2 = self._fetch(
             sel["cell_valid"], sel["cell_point"], sel["cell_valid2"], sel["cell_point2"])
         cell_valid, cv2 = cell_valid > 0.5, cv2 > 0.5
         cell_point = cell_point.astype(np.int32)
@@ -1131,7 +1214,7 @@ class FrameHandler:
     def _reproject_seeds(self, frame: Frame, n_have: int) -> int:
         """Match unconverged seeds into the frame; successful matches become
         TEMPORARY map points (half-weighted in the pose LM)."""
-        sd = {k: self.seeds[k].cpu().numpy() for k in SEED_FETCH}
+        sd = {k: self._d2h(self.seeds[k]) for k in SEED_FETCH}
         alive = sd["valid"] & (sd["temp_point"] < 0) & (sd["mu"] > 1e-10)
         if alive.sum() == 0:
             return 0
@@ -1251,11 +1334,11 @@ class FrameHandler:
             return
         idxs = np.where(sel)[0]
         if buf is not None and slot_rows is not None and sel.sum() == len(slot_rows):
-            b = buf.numpy()[slot_rows]
+            b = self._d2h(buf)[slot_rows]
         else:
-            b = memoize_level_windows_packed(
+            b = self._d2h(memoize_level_windows_packed(
                 frame.data["pyr"], self._h2d(o["px"][idxs], torch.float32),
-                self._h2d(o["level"][idxs])).cpu().numpy()
+                self._h2d(o["level"][idxs])))
         # the write-back fills obs rows 0..len(w) in ascending slot order, so
         # buf[slot_rows] is in obs-row order
         wins = b[:, :-2].reshape(-1, 24, 24)
@@ -1347,7 +1430,7 @@ class FrameHandler:
         else:
             work = kf_map.eager(functools.partial(kf_map.map_body, cam=self.cam, cfg=self.cfg),
                                 self.device)
-        self.seeds, bundle, refresh_buf = work(*args)
+        self.seeds, bundle, refresh_buf = self._run(work, args, "kf_map")
         kf_dev = {"kf_pack": kf_pack, "bundle": _Pending(bundle), "seeds_before": seeds_before,
                   "refresh_buf": _Pending(refresh_buf)}
         self.batch_counter += 1
@@ -1371,7 +1454,7 @@ class FrameHandler:
         and activation of converged seeds into the point table with their
         appearance windows (one gather of the converged rows)."""
         seeds_before = kf_dev["seeds_before"]
-        b = kf_dev["bundle"].numpy()
+        b = self._d2h(kf_dev["bundle"])
         conv = b[:, 0] > 0.5
         stale = b[:, 1] > 0.5
         temp_ids = b[:, 13].astype(np.int32)
@@ -1419,8 +1502,10 @@ class FrameHandler:
         self.points.grad[idx] = b[w, 10:12]
         self.points.idist[idx] = b[w, 12]
         wdim = int(seeds_before["host_win"].shape[1])
-        gbuf = gather_seed_windows(seeds_before["host_win"], seeds_before["host_anchor"],
-                                   self._h2d(w.astype(np.int64))).cpu().numpy()
+        rows = self._h2d(w.astype(np.int64))
+        with self._dev("kf_map"):
+            gbuf = gather_seed_windows(seeds_before["host_win"], seeds_before["host_anchor"], rows)
+        gbuf = self._d2h(gbuf)
         win_c, anch_c = crop_window(
             gbuf[:, :wdim * wdim].reshape(-1, wdim, wdim), gbuf[:, wdim * wdim:].astype(np.int32),
             b[w, 3:5], b[w, 8].astype(np.int32),
@@ -1483,7 +1568,7 @@ class FrameHandler:
         else:
             sweeps = kf_map.eager(functools.partial(kf_map.backfill_body, cam=self.cam),
                                   self.device)
-        self.seeds = sweeps(*args)
+        self.seeds = self._run(sweeps, args, "kf_map")
 
     def _px_error_dev(self) -> torch.Tensor:
         if self._px_err_dev is None:
@@ -1595,7 +1680,7 @@ class FrameHandler:
             self._h2d(se3np.mul(frame.T_f_w, se3np.inv(ref.T_f_w)), torch.float32),
             self._scalar(1.0),
         )
-        n_tracked, T_cur_ref = _fetch(tout["n_tracked"], tout["T_cur_ref"])
+        n_tracked, T_cur_ref = self._fetch(tout["n_tracked"], tout["T_cur_ref"])
         if int(n_tracked) > 30:
             frame.T_f_w = se3np.normalize(
                 se3np.mul(T_cur_ref.astype(np.float64), ref.T_f_w)

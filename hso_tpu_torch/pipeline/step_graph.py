@@ -264,10 +264,23 @@ class StepGraph:
         self.nodes = instances[0].nodes
         self._instances = instances
 
-    def __call__(self, *args):
+    @property
+    def captured(self) -> bool:
+        return self._instances is not None
+
+    def stage(self, *args) -> _Instance:
+        """Capture at the first call, then copy ``args`` into the next
+        instance's inputs: the host's part of a call."""
         if self._instances is None:
             self.capture(*args)
         inst = self._instances[self._turn]
         self._turn = (self._turn + 1) % len(self._instances)
         inst.stage(args)
+        return inst
+
+    def run(self, inst: _Instance):
+        """Replay a staged instance: its output dict."""
         return inst.run(self.step)
+
+    def __call__(self, *args):
+        return self.run(self.stage(*args))

@@ -12,7 +12,12 @@ runner exits 2 unless ``cpu=1`` is given.  Writes ``result/<name>.txt``
 (``stamp tx ty tz qx qy qz qw``, camera-to-world, one line a keyframe; a
 keyframe's stamp is its line of the ``times`` file).  ``photo=1`` turns on
 online photometric calibration (response, vignette, exposure).
-``trace=1`` writes per-frame stage timings to ``result/<name>_trace.csv``.
+``trace=1`` writes per-frame stage timings to ``result/<name>_trace.csv`` and
+prints the device's ten longest idle stretches, each with the host span that
+was open as it began (``PerformanceMonitor.idle_gaps``).  It traces with
+``fence=False``: no stage waits for the device, so the stages overlap the
+device as they do untraced and the gaps are the program's own (a fenced
+stage's wait would make gaps of its own).
 ``gt=<file>`` (TUM or EuRoC csv) prints the scale-aligned ATE of the keyframe
 trajectory after the run; ``ate_json=<file>`` also writes it as JSON.
 Calibrations that ask for whole-image undistortion are rectified on the
@@ -78,7 +83,7 @@ def make_handler(cam, device, photo: bool = False, trace_name: str | None = None
         cam = cam.ideal()
     vo = FrameHandler(cam, Config(photometric_calib=photo), device=device)
     if trace_name is not None:
-        vo.enable_tracing(trace_name=trace_name, trace_dir=trace_dir)
+        vo.enable_tracing(trace_name=trace_name, trace_dir=trace_dir, fence=False)
     return vo, undistort
 
 
@@ -175,6 +180,9 @@ def main(argv=None) -> int:
     if vo.monitor is not None:
         vo.monitor.close()
         print(f"trace -> {vo.monitor.path}")
+        print("the device's ten longest idle stretches (ms, the host span as each began):")
+        for s, span, t in vo.monitor.idle_gaps(10):
+            print(f"  {1e3 * s:9.3f} ms  at {t:9.4f} s  {span}")
     if args.get("gt"):
         r, n_pairs = keyframe_ate(out, args["gt"], float(args.get("max_dt", 0.02)))
         if r is None:

@@ -3,7 +3,7 @@ frames of the box sequence, ``python -m hso_tpu_torch.run_dataset cpu=1
 trace=1 gt=…`` runs them, and its keyframe trajectory file is held against
 the JAX handler run on the same images (read by the JAX ``ImageReader``,
 stamped and written by the JAX writer).  The trace CSV has one row a frame
-and the JAX handler's columns.
+and the handler's columns, the JAX handler's logs among them.
 
 The runner reads through the prefetching reader and drives the live viewer
 (``live=8``).
@@ -152,9 +152,11 @@ def test_trace_and_ate(runs):
     tmp = runs["tmp"]
     with open(tmp / "result" / "box_trace.csv") as fh:
         rows = list(csv.reader(fh))
-    hj = JaxHandler.__new__(JaxHandler)
-    header = [f"timer_{t}" for t in hj.TRACE_TIMERS] + [f"log_{name}" for name in hj.TRACE_LOGS]
+    header = FrameHandler.trace_columns()
     assert rows[0] == header
+    # the JAX handler's log columns, in its order, among the port's
+    logs = [c for c in header if c.startswith("log_")]
+    assert logs[:len(JaxHandler.TRACE_LOGS)] == [f"log_{n}" for n in JaxHandler.TRACE_LOGS]
     assert len(rows) == 1 + N
     frame_ids = [float(r[header.index("log_frame_id")]) for r in rows[1:]]
     assert frame_ids == list(range(N))
