@@ -10,7 +10,9 @@ The map is fixed-capacity struct-of-arrays with validity masks:
     from, refreshed at every keyframe that observes the point.
   * per-frame observation tables (``empty_obs``), slot → point id.
   * ``Frame`` and ``KeyframeWindow`` — host records of frames and keyframes;
-    the device pyramid is kept for the ``recent`` newest keyframes only.
+    the device pyramid is kept for the ``recent`` newest keyframes only.  A
+    keyframe's observation table is its row of the registry's keyframe-major
+    table, which also holds the inverted point→observation index.
 
 A row that ``alloc`` hands out starts with its success/fail counters at 0:
 the counters belong to the point, not to the row.
@@ -32,6 +34,9 @@ TYPE_UNKNOWN = 3
 TYPE_GOOD = 4
 
 HOST_WIN = 24
+
+#: ``PointTable.first_obs_kf`` of a point that no keyframe has registered
+NO_KF = np.iinfo(np.int32).max
 
 
 def crop_window(win: np.ndarray, anchor: np.ndarray, px: np.ndarray,
@@ -93,16 +98,16 @@ class PointTable:
         self.patch_win = np.zeros((p_max, HOST_WIN, HOST_WIN), np.float32)
         self.patch_anchor = np.zeros((p_max, 2), np.int32)
         self._free = list(range(p_max - 1, -1, -1))
-        # inverted observation index: per point, the (kf_index, obs_slot)
-        # pairs of keyframes observing it.  Entries go stale when BA strips an
-        # observation; readers verify against the forward table (live_obs).
-        self.obs_refs: list[list[tuple[int, int]]] = [[] for _ in range(p_max)]
         # last keyframe at which the point was registered or observed (drives
-        # gc_stale)
+        # gc_stale); no registered cell of the point lies in a later row
         self.last_obs_kf = np.full(p_max, -1, np.int32)
-        # the owning KeyframeWindow (set by the pipeline): release() clears the
-        # released point's forward observation rows so a recycled row id is
-        # never re-admitted through a stale row
+        # first keyframe that registered the point (NO_KF: none yet); with
+        # last_obs_kf, the rows of the observation table release() searches
+        self.first_obs_kf = np.full(p_max, NO_KF, np.int32)
+        # the owning KeyframeWindow (set by the pipeline), whose observation
+        # table is the inverted point→observation index: register_obs admits a
+        # keyframe's cells; release() clears the released point's cells so a
+        # recycled row id is never re-admitted through a stale cell
         self.kfs = None
 
     def init_patch_from_host(self, idx) -> None:
@@ -119,42 +124,47 @@ class PointTable:
         return idx
 
     def release(self, idx) -> None:
-        frames = self.kfs.frames if self.kfs is not None else None
-        for i in np.atleast_1d(idx):
-            if self.valid[i]:
-                if frames is not None:
-                    for kf, s in self.obs_refs[int(i)]:
-                        if kf < len(frames) and frames[kf].obs is not None:
-                            ko = frames[kf].obs
-                            if ko["point_id"][s] == i:
-                                ko["valid"][s] = False
-                                ko["point_id"][s] = -1
-                self.valid[i] = False
-                self.type[i] = TYPE_DELETED
-                self.obs_refs[int(i)] = []
-                self.last_obs_kf[i] = -1
-                self._free.append(int(i))
+        idx = np.atleast_1d(np.asarray(idx, np.int64))
+        idx = idx[self.valid[idx]]
+        if not len(idx):
+            return
+        # each row once, in the order given (the free list's order)
+        idx = idx[np.sort(np.unique(idx, return_index=True)[1])]
+        kfs = self.kfs
+        lo, hi = self.obs_rows(idx)
+        if kfs is not None and lo < hi:
+            # out of the index: every cell registered with a released point;
+            # cleared: those that still hold it
+            mark = np.zeros(self.p_max + 1, bool)     # the extra entry: reg_pid -1
+            mark[idx] = True
+            reg = kfs.reg_pid[lo:hi]
+            kf, i = np.divmod(np.flatnonzero(np.take(mark, reg)), reg.shape[1])
+            kf += lo
+            held = kfs.obs["point_id"][kf, i] == kfs.reg_pid[kf, i]
+            kfs.clear_cells(kf[held], i[held])
+            kfs.reg_pid[kf, i] = -1
+        self.valid[idx] = False
+        self.type[idx] = TYPE_DELETED
+        self.last_obs_kf[idx] = -1
+        self.first_obs_kf[idx] = NO_KF
+        self._free.extend(idx.tolist())
 
     def register_obs(self, frame) -> None:
-        """Record a keyframe's observations in the inverted index (once per
-        keyframe, when its observation table is final)."""
+        """Admit a keyframe's observations to the inverted index (once per
+        keyframe, when its observation table is final): its cells that are
+        valid with a point id."""
         o = frame.obs
         kf = frame.kf_index
-        for i in np.nonzero(o["valid"] & (o["point_id"] >= 0))[0]:
-            p = int(o["point_id"][i])
-            self.obs_refs[p].append((kf, int(i)))
-            self.last_obs_kf[p] = max(self.last_obs_kf[p], kf)
+        live = o["valid"] & (o["point_id"] >= 0)
+        self.kfs.reg_pid[kf] = np.where(live, o["point_id"], -1)
+        p = o["point_id"][live]
+        self.last_obs_kf[p] = np.maximum(self.last_obs_kf[p], kf)
+        self.first_obs_kf[p] = np.minimum(self.first_obs_kf[p], kf)
 
-    def live_obs(self, p: int, frames: list) -> list[tuple[int, int]]:
-        """Verified (kf_index, slot) observations of point ``p``; drops the
-        entries whose forward slot was stripped or reused."""
-        fresh = []
-        for kf, i in self.obs_refs[p]:
-            ko = frames[kf].obs
-            if ko is not None and ko["valid"][i] and ko["point_id"][i] == p:
-                fresh.append((kf, i))
-        self.obs_refs[p] = fresh
-        return fresh
+    def obs_rows(self, idx) -> tuple[int, int]:
+        """Rows ``lo:hi`` of the keyframe-major observation table that hold
+        every cell registered with one of the points ``idx`` (none: lo ≥ hi)."""
+        return int(self.first_obs_kf[idx].min()), int(self.last_obs_kf[idx].max()) + 1
 
     def gc_stale(self, latest_kf: int, grace_kfs: int = 12,
                  pressure: float = 0.75) -> int:
@@ -211,7 +221,16 @@ class Frame:
 
 
 class KeyframeWindow:
-    """Global keyframe registry: host poses, the recent keyframes' pyramids."""
+    """Global keyframe registry: host poses, the recent keyframes' pyramids and
+    the keyframe-major observation table.
+
+    The table holds one row per keyframe for each field of ``empty_obs``
+    (``obs[field][kf]``); a keyframe's ``frame.obs`` arrays are views of its
+    row, so every write to them (the handler's, BA's strips, ``release``) is
+    the table's.  ``reg_pid[kf, i]`` is the point id that ``register_obs``
+    admitted at cell ``i`` (-1: none, or stripped or released since): the
+    inverted point→observation index.  A cell is live while it is valid and
+    still holds that point (:meth:`live`)."""
 
     def __init__(self, k_all_max: int = 1024, recent: int = 8):
         self.k_all_max = k_all_max
@@ -219,6 +238,8 @@ class KeyframeWindow:
         self.exposure = np.ones(k_all_max, np.float32)
         self.frames: list[Frame] = []
         self.recent = recent
+        self.obs: dict | None = None       # made at the first keyframe, its width
+        self.reg_pid: np.ndarray | None = None
 
     def add(self, frame: Frame) -> int:
         idx = len(self.frames)
@@ -228,10 +249,40 @@ class KeyframeWindow:
         self.poses[idx] = frame.T_f_w
         self.exposure[idx] = frame.exposure
         self.frames.append(frame)
+        self.bind_obs(frame)
         # drop the device pyramid of the keyframe that left the recent window
         if len(self.frames) > self.recent:
             self.frames[-self.recent - 1].data = None
         return idx
+
+    def bind_obs(self, frame: Frame) -> None:
+        """Copy keyframe ``frame``'s observation table into its row and make
+        its ``obs`` arrays views of that row (none of its cells admitted)."""
+        o, kf = frame.obs, frame.kf_index
+        if self.obs is None:
+            # zeros are committed only where rows are written
+            self.obs = {k: np.zeros((self.k_all_max,) + v.shape, v.dtype) for k, v in o.items()}
+            self.reg_pid = np.zeros((self.k_all_max, len(o["valid"])), np.int32)
+        for k, v in o.items():
+            row = self.obs[k][kf]
+            row[...] = v
+            o[k] = row
+        self.reg_pid[kf] = -1
+
+    def live(self, lo: int = 0, hi: int | None = None) -> np.ndarray:
+        """Mask of the live cells of rows ``lo:hi`` (every keyframe's by
+        default): admitted by ``register_obs``, still valid and still holding
+        the point admitted."""
+        hi = len(self.frames) if hi is None else min(hi, len(self.frames))
+        reg = self.reg_pid[lo:hi]
+        return (reg >= 0) & self.obs["valid"][lo:hi] & (self.obs["point_id"][lo:hi] == reg)
+
+    def clear_cells(self, kf: np.ndarray, i: np.ndarray) -> None:
+        """Strip cells (keyframe ``kf``, slot ``i``): invalid, no point, out of
+        the index."""
+        self.obs["valid"][kf, i] = False
+        self.obs["point_id"][kf, i] = -1
+        self.reg_pid[kf, i] = -1
 
     def sync_pose(self, idx: int, T: np.ndarray) -> None:
         self.poses[idx] = T

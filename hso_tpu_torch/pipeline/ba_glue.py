@@ -22,9 +22,15 @@ handler's cache keyed by ``(n_kf, n_pts, n_iter, focal, strip_px)``
 (:func:`captured_local_ba`, the JAX package's ``_jitted_local_ba``): one
 replay instead of some four thousand launches, captured at the first solve
 of its key, so a handler pays only for the keys it solves.  The point-sharded
-solve stays eager (it runs collectives).  Host iteration order is fixed
-(``set`` of ints, counts sorted by (-count, keyframe)), so the problem is the
-same from run to run.
+solve stays eager (it runs collectives).
+
+The assembly and the write-back are array operations over the map's
+keyframe-major observation table (:class:`KeyframeWindow`: one row of
+observation cells a keyframe, each cell admitted by ``register_obs`` while it
+stays valid with the same point), with no loop over points or observations.
+Every order is fixed (counts sorted by (-count, keyframe), first occurrences,
+cells in (point, keyframe, slot) order), so the problem is the same from run
+to run.
 """
 
 from __future__ import annotations
@@ -62,24 +68,31 @@ def captured_local_ba(cache: dict, device, **kw) -> StepGraph:
 
 
 def covisible_keyframes(handler, center) -> list[int]:
-    """Keyframes sharing map points with the centre, counted through the
-    inverted point→observers index (never a scan over all keyframes)."""
+    """Keyframes sharing map points with the centre: for each keyframe, the
+    count of its live cells (:meth:`KeyframeWindow.live`) that hold a point
+    the centre sees, the centre's own excluded; only the rows that can hold
+    those points' cells are read (:meth:`PointTable.obs_rows`)."""
     o = center.obs
-    seen = o["point_id"][o["valid"] & (o["point_id"] >= 0)].tolist()
-    if not seen:
+    seen = o["point_id"][o["valid"] & (o["point_id"] >= 0)]
+    if not len(seen):
         return []
-    pts = handler.points
-    frames = handler.kfs.frames
-    counter: dict[int, int] = {}
-    for p in set(seen):
-        for kf, _ in pts.live_obs(p, frames):
-            if kf != center.kf_index:
-                counter[kf] = counter.get(kf, 0) + 1
-    counts = sorted(counter.items(), key=lambda t: (-t[1], t[0]))
-    th = 5 if len(set(seen)) > 30 else 3
-    core = [k for k, c in counts if c >= th][: handler.cfg.core_n_kfs]
-    if not core and counts:
-        core = [counts[0][0]]
+    kfs, pts = handler.kfs, handler.points
+    mark = np.zeros(pts.p_max, bool)
+    mark[seen] = True
+    lo, hi = pts.obs_rows(seen)
+    live = kfs.live(lo, hi)
+    # a cell that is not live may hold -1 (mark's last entry): masked out
+    held = live & np.take(mark, kfs.obs["point_id"][lo:lo + len(live)])
+    n_cells = np.zeros(len(kfs.frames), np.int64)
+    n_cells[lo:lo + len(live)] = np.count_nonzero(held, axis=1)
+    n_cells[center.kf_index] = 0
+    ks = np.nonzero(n_cells)[0]
+    ks = ks[np.lexsort((ks, -n_cells[ks]))]            # by (-count, keyframe)
+    th = 5 if int(mark.sum()) > 30 else 3
+    core = ks[n_cells[ks] >= th][: handler.cfg.core_n_kfs].tolist()
+    if not core and len(ks):
+        core = [int(ks[0])]
+    frames = kfs.frames
     last_kf = frames[-2].kf_index if len(frames) > 1 else None
     if last_kf is not None and last_kf not in core:
         core.append(last_kf)
@@ -111,124 +124,119 @@ def run_local_ba(handler, center) -> dict | None:
 
 def assemble(handler, center) -> dict | None:
     """The windowed BA problem around keyframe ``center`` as host arrays, with
-    the slots the write-back needs; None when the window is too small."""
+    the slots the write-back needs; None when the window is too small.  Array
+    operations over the keyframe-major observation table
+    (:class:`KeyframeWindow`): no loop over points or observations."""
     cfg = handler.cfg
     K = cfg.n_kfs_window
     P = cfg.n_points_ba_max
+    kfs, pts = handler.kfs, handler.points
 
-    core = covisible_keyframes(handler, center)
-    window = core + [center.kf_index]
+    window = covisible_keyframes(handler, center) + [center.kf_index]
 
-    # ---- points observed by the window ----
-    pts = handler.points
-    point_set: list[int] = []
-    point_slot = {}
-    for k in window:
-        ko = handler.kfs.frames[k].obs
-        for p in ko["point_id"][ko["valid"] & (ko["point_id"] >= 0)].tolist():
-            if p not in point_slot and pts.valid[p]:
-                if len(point_set) >= P:
-                    break
-                point_slot[p] = len(point_set)
-                point_set.append(p)
-
+    # ---- points observed by the window: valid points in window order, first
+    # occurrence, at most P ----
+    pid = kfs.obs["point_id"][window]
+    seen = pid[kfs.obs["valid"][window] & (pid >= 0)]
+    seen = seen[pts.valid[seen]]
+    point_set = seen[np.sort(np.unique(seen, return_index=True)[1])[:P]]
     if len(point_set) < 8:
         return None
 
     # ---- keyframe slots: the window first (free by the fixation rules), then
-    # fixed hosts and targets as they come ----
-    kf_slot = {}
-    free_flags = []
-
-    def slot_of(kf_idx: int, free: bool) -> int | None:
-        if kf_idx in kf_slot:
-            return kf_slot[kf_idx]
-        if len(kf_slot) >= K:
-            return None
-        kf_slot[kf_idx] = len(kf_slot)
-        free_flags.append(free)
-        return kf_slot[kf_idx]
-
+    # fixed hosts and targets in the order the points and cells meet them ----
+    slot = np.full(kfs.k_all_max, -1, np.int64)        # keyframe → slot
+    kf_slot: dict[int, int] = {}
+    free = np.zeros(K, bool)
     center_id = center.kf_index
     for k in window:
-        is_free = not (k == 0 or k + 20 < center_id)
-        slot_of(k, is_free)
+        if k not in kf_slot and len(kf_slot) < K:
+            slot[k] = kf_slot[k] = len(kf_slot)
+            free[slot[k]] = not (k == 0 or k + 20 < center_id)
+
+    def fixed_slots(kf_seq):
+        """Slots for the keyframes of ``kf_seq`` that have none, in order of
+        first appearance, while slots last."""
+        new = kf_seq[slot[kf_seq] < 0]
+        new = new[np.sort(np.unique(new, return_index=True)[1])][: K - len(kf_slot)]
+        for k in new.tolist():
+            slot[k] = kf_slot[k] = len(kf_slot)
+
+    host = pts.host_kf[point_set]
+    fixed_slots(host)
     # points whose host keyframe gets no slot (window overflow) leave this round
-    kept = []
-    for p in point_set:
-        if slot_of(int(pts.host_kf[p]), False) is not None:
-            kept.append(p)
-        else:
-            del point_slot[p]
-    point_set = kept
-    point_slot = {p: i for i, p in enumerate(point_set)}
-    if len(point_set) < 8:
+    kept = slot[host] >= 0
+    point_set, host = point_set[kept], host[kept]
+    n_p = len(point_set)
+    if n_p < 8:
         return None
 
-    # ---- observation cells: every live observation of a windowed point
-    # (through the inverted index), host frame excluded, at its
-    # (point slot, keyframe slot) cell ----
-    frames = handler.kfs.frames
+    # ---- observation cells: every live cell of a windowed point, host frame
+    # excluded, at its (point slot, keyframe slot), in (point, keyframe, slot)
+    # order: the order in which the inverted index lists a point's cells ----
+    point_slot = np.full(pts.p_max, -1, np.int64)
+    point_slot[point_set] = np.arange(n_p)
+    lo, hi = pts.obs_rows(point_set)
+    live = kfs.live(lo, hi)
+    rows = kfs.obs["point_id"][lo:lo + len(live)]
+    # a cell that is not live may hold -1 (point_slot's last entry): masked out
+    cell = np.flatnonzero(live & (np.take(point_slot, rows) >= 0))
+    kf_c, i_c = np.divmod(cell, rows.shape[1])
+    kf_c += lo
+    s_c = point_slot[rows.ravel()[cell]]
+    m = kf_c != host[s_c]
+    order = np.argsort(s_c[m], kind="stable")
+    kf_c, i_c, s_c = kf_c[m][order], i_c[m][order], s_c[m][order]
+    fixed_slots(kf_c)
+    t_c = slot[kf_c]
+    m = t_c >= 0
+    kf_c, i_c, s_c, t_c = kf_c[m], i_c[m], s_c[m], t_c[m]
+    # at most one live observation per (point, keyframe)
+    cells, first, count = np.unique(s_c * K + t_c, return_index=True, return_counts=True)
+    if (count > 1).any():
+        d = first[np.argmax(count > 1)]
+        raise AssertionError(
+            f"duplicate observation of point {point_set[s_c[d]]} in keyframe {kf_c[d]}")
+    n_obs = len(cells)
+    if n_obs < 8:
+        return None
+
     meas = np.zeros((P, K, 2), np.float32)
     grad = np.zeros((P, K, 2), np.float32)
     is_edge = np.zeros((P, K), bool)
     level = np.zeros((P, K), np.int32)
     valid = np.zeros((P, K), bool)
-    f_host = np.zeros((P, 3), np.float32)
-    host_col = np.zeros(P, np.int32)
     src_kf = np.full((P, K), -1, np.int32)   # write-back: cell → (kf, feature)
     src_i = np.full((P, K), -1, np.int32)
-
-    n_obs = 0
-    for p in point_set:
-        s = point_slot[p]
-        host = int(pts.host_kf[p])
-        host_col[s] = kf_slot[host]
-        f_host[s] = pts.host_f[p]
-        for kf_idx, i in pts.live_obs(p, frames):
-            if kf_idx == host:
-                continue
-            t = slot_of(kf_idx, False)
-            if t is None:
-                continue
-            ko = frames[kf_idx].obs
-            # at most one live observation per (point, keyframe)
-            assert not valid[s, t], (
-                f"duplicate observation of point {p} in keyframe {kf_idx}")
-            f = ko["f"][i]
-            meas[s, t] = f[:2] / max(f[2], 1e-9)
-            grad[s, t] = ko["grad"][i]
-            is_edge[s, t] = ko["species"][i] == 1
-            level[s, t] = ko["level"][i]
-            valid[s, t] = True
-            src_kf[s, t] = kf_idx
-            src_i[s, t] = i
-            n_obs += 1
-
-    if n_obs < 8:
-        return None
+    f = kfs.obs["f"][kf_c, i_c]
+    meas[s_c, t_c] = f[:, :2] / np.maximum(f[:, 2:], np.float32(1e-9))
+    grad[s_c, t_c] = kfs.obs["grad"][kf_c, i_c]
+    is_edge[s_c, t_c] = kfs.obs["species"][kf_c, i_c] == 1
+    level[s_c, t_c] = kfs.obs["level"][kf_c, i_c]
+    valid[s_c, t_c] = True
+    src_kf[s_c, t_c] = kf_c
+    src_i[s_c, t_c] = i_c
+    f_host = np.zeros((P, 3), np.float32)
+    f_host[:n_p] = pts.host_f[point_set]
+    host_col = np.zeros(P, np.int32)
+    host_col[:n_p] = slot[host]
 
     # ---- pack keyframes / points ----
     T_kf = np.tile(se3np.identity()[None], (K, 1, 1)).astype(np.float32)
-    free = np.zeros(K, bool)
-    for kf_idx, s in kf_slot.items():
-        T_kf[s] = handler.kfs.poses[kf_idx]
-        free[s] = free_flags[s]
+    T_kf[:len(kf_slot)] = kfs.poses[list(kf_slot)]
     idist = np.zeros(P, np.float32)
+    idist[:n_p] = pts.idist[point_set]
     pvalid = np.zeros(P, bool)
-    for p, s in point_slot.items():
-        idist[s] = pts.idist[p]
-        pvalid[s] = True
+    pvalid[:n_p] = True
     n_iter = cfg.loba_num_iter
-    if len(handler.kfs.frames) <= 5:
+    if len(kfs.frames) <= 5:
         n_iter = 30
     return dict(T_kf=T_kf, free=free, idist=idist, pvalid=pvalid,
                 obs=dict(meas=meas, grad=grad, is_edgelet=is_edge, level=level, valid=valid,
                          f_host=f_host, host=host_col),
                 kw=dict(n_kf=K, n_pts=P, n_iter=n_iter, focal=float(handler.cam.focal_mean),
                         strip_px=float(cfg.loba_thresh)),
-                n_obs=n_obs, point_set=point_set, point_slot=point_slot, kf_slot=kf_slot,
-                src_kf=src_kf, src_i=src_i)
+                n_obs=n_obs, point_set=point_set, kf_slot=kf_slot, src_kf=src_kf, src_i=src_i)
 
 
 def solve(handler, prob: dict) -> dict:
@@ -261,7 +269,7 @@ def write_back(handler, center, prob: dict, out: dict) -> dict:
     cfg = handler.cfg
     pts = handler.points
     K, P = prob["kw"]["n_kf"], prob["kw"]["n_pts"]
-    kf_slot, point_slot, free = prob["kf_slot"], prob["point_slot"], prob["free"]
+    kf_slot, free, point_set = prob["kf_slot"], prob["free"], prob["point_set"]
     src_kf, src_i = prob["src_kf"], prob["src_i"]
     f32 = torch.float32
     buf = handler._d2h(torch.cat([
@@ -271,7 +279,7 @@ def write_back(handler, center, prob: dict, out: dict) -> dict:
     ])).astype(np.float64)
     nT = K * 12
     T_new = buf[:nT].reshape(K, 3, 4)
-    id_new = buf[nT:nT + P]
+    id_new = buf[nT:nT + len(point_set)]
     inl = buf[nT + P:nT + P + P * K].reshape(P, K) > 0.5
     chi2_init, chi2_final = buf[-2], buf[-1]
     # pose write-back is off by default (Config.loba_pose_writeback): the
@@ -284,16 +292,11 @@ def write_back(handler, center, prob: dict, out: dict) -> dict:
             handler.kfs.sync_pose(kf_idx, se3np.normalize(T_new[s]))
             if kf_idx == center.kf_index:
                 center.T_f_w = handler.kfs.poses[kf_idx]
-    for p, s in point_slot.items():
-        if id_new[s] > 1e-10:
-            pts.idist[p] = id_new[s]
-    n_strip = 0
-    bad = np.nonzero(~inl & (src_kf >= 0))
-    for s, t_ in zip(*bad):
-        ko = handler.kfs.frames[src_kf[s, t_]].obs
-        ko["point_id"][src_i[s, t_]] = -1
-        ko["valid"][src_i[s, t_]] = False
-        n_strip += 1
+    up = id_new > 1e-10
+    pts.idist[point_set[up]] = id_new[up]
+    bad = ~inl & (src_kf >= 0)
+    handler.kfs.clear_cells(src_kf[bad], src_i[bad])
+    n_strip = int(bad.sum())
 
     return {
         "n_obs": prob["n_obs"],

@@ -297,7 +297,7 @@ def load_checkpoint(handler, path: str, resume_stage: str | None = None) -> None
     path (valid only when the next frame is adjacent to the saved last
     keyframe, whose pyramid is stored); the default ``None`` re-enters
     through RELOCALIZING."""
-    from hso_tpu_torch.mapmodel.structures import Frame, empty_obs
+    from hso_tpu_torch.mapmodel.structures import NO_KF, Frame, empty_obs
     from hso_tpu_torch.pipeline.frame_handler import STAGE_DEFAULT, STAGE_RELOC
 
     z = np.load(path, allow_pickle=False)
@@ -316,12 +316,14 @@ def load_checkpoint(handler, path: str, resume_stage: str | None = None) -> None
         obs = empty_obs(handler._n_obs_pad)
         for k in obs:
             obs[k] = z[f"kf{i}_obs_{k}"].copy()
-        handler.kfs.frames.append(Frame(
+        frame = Frame(
             frame_id=-1, timestamp=float(z[f"kf{i}_ts"]), T_f_w=z[f"kf{i}_T"].copy(),
-            data=None, obs=obs, is_keyframe=True, kf_index=i))
+            data=None, obs=obs, is_keyframe=True, kf_index=i)
+        handler.kfs.frames.append(frame)
+        handler.kfs.bind_obs(frame)
 
     # the inverted point→(kf, slot) index is derived state: rebuilt here
-    pts.obs_refs = [[] for _ in range(pts.p_max)]
+    pts.first_obs_kf[:] = NO_KF
     for f in handler.kfs.frames:
         pts.register_obs(f)
 

@@ -50,7 +50,14 @@ def test_port_restores_the_jax_state(files):
     hj, ht = files["hj"], files["ht"]
     for k in PT_SAVED:
         assert np.array_equal(getattr(hj.points, k), getattr(ht.points, k)), k
-    assert hj.points._free == ht.points._free and hj.points.obs_refs == ht.points.obs_refs
+    assert hj.points._free == ht.points._free
+    # the inverted index: the JAX lists against the port's table (as loaded,
+    # every registered cell is live)
+    kf, i = np.nonzero(ht.kfs.reg_pid[:len(ht.kfs.frames)] >= 0)
+    pid = ht.kfs.reg_pid[kf, i]
+    assert hj.points.obs_refs == [list(zip(kf[pid == p].tolist(), i[pid == p].tolist()))
+                                  for p in range(ht.points.p_max)]
+    assert ht.kfs.live().sum() == len(kf)
     assert np.array_equal(hj.kfs.poses, ht.kfs.poses)
     assert len(hj.kfs.frames) == len(ht.kfs.frames) == 6
     for a, b in zip(hj.kfs.frames, ht.kfs.frames):

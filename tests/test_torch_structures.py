@@ -1,8 +1,9 @@
 """The port's map model (``hso_tpu_torch.mapmodel.structures``) against the
 JAX package's: one seeded sequence of ``alloc``, ``release``,
-``register_obs``, ``live_obs``, BA-style strips, ``gc_stale`` and
-``positions`` drives both point tables and keyframe registries, and every
-array, index and free list agrees exactly; ``crop_window`` gives the same
+``register_obs``, BA-style strips, ``gc_stale`` and ``positions`` drives both
+point tables and keyframe registries, and every array, index and free list
+agrees exactly (the JAX table's ``live_obs`` lists against the live cells of
+the port's keyframe-major observation table); ``crop_window`` gives the same
 bits.  One difference is the port's on purpose: a row that ``alloc`` hands
 out starts with ``n_succ``/``n_fail`` at 0, where the JAX table keeps the
 previous occupant's counts."""
@@ -18,6 +19,14 @@ P, KF, SLOTS = 192, 24, 40
 ARRAYS = ("valid", "type", "host_kf", "host_px", "host_f", "host_level", "species", "grad",
           "idist", "host_win", "host_anchor", "patch_kf", "patch_px", "patch_f", "patch_level",
           "patch_grad", "patch_win", "patch_anchor", "last_obs_kf")
+
+
+def table_live_obs(kfs) -> list:
+    """Per point, the (kf_index, slot) cells of the port's table that are
+    live, in the order the JAX index lists them (keyframe, then slot)."""
+    kf, i = np.nonzero(kfs.live())
+    pid = kfs.obs["point_id"][kf, i]
+    return [list(zip(kf[pid == p].tolist(), i[pid == p].tolist())) for p in range(P)]
 
 
 def drive(mod, seed=0):
@@ -64,7 +73,9 @@ def drive(mod, seed=0):
         if len(live):
             pts.release(rng.choice(live, min(len(live), 3), replace=False))
         log["gc"].append(pts.gc_stale(kf, grace_kfs=5, pressure=0.4))
-        log["live"].append([pts.live_obs(p, kfs.frames) for p in range(P)])
+        # (copies: the JAX index keeps appending to the lists live_obs returns)
+        log["live"].append([list(pts.live_obs(p, kfs.frames)) for p in range(P)]
+                           if mod is js else table_live_obs(kfs))
         log["pos"].append(pts.positions(kfs.poses))
     return pts, kfs, log
 
@@ -75,12 +86,12 @@ def both():
 
 
 def test_point_tables_equal(both):
-    (pj, _, _), (pt, _, _) = both
+    (pj, _, _), (pt, kt, _) = both
     for name in ARRAYS:
         a, b = getattr(pj, name), getattr(pt, name)
         assert a.dtype == b.dtype and np.array_equal(a, b), name
     assert pj._free == pt._free
-    assert pj.obs_refs == pt.obs_refs
+    assert pj.obs_refs == table_live_obs(kt)
     assert int(pt.valid.sum()) > 20
 
 
