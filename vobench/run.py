@@ -12,6 +12,22 @@ loop, how many frames a second of the window are rendered (about twice what
 the program takes); each per-layer metric is read by
 ``vobench/metrics/<metric>.py``.
 
+What a configuration, a limits file and the files beside them may state:
+
+* the camera as the dataset publishes it (``calibration``: ``Pinhole`` with
+  radial-tangential distortion, or ``FOV``), written as the program's
+  calibration file, which the program rescales above ``MAX_RESOLUTION``; the
+  frames are rendered at that size through the same model;
+* the handler's settings, ``photometric_calib`` among them;
+* the camera's photometric chain (``photometric``: exposure, vignette,
+  response; ``vobench.scene.Photometry``);
+* a compared number that is none of ``BUILTIN_NUMBERS``: read by
+  ``vobench/checks/<name>.py``'s ``read(ctx)`` once the window has closed,
+  from the handler, the configuration, the rendered poses, the statuses and
+  the photometric truth;
+* further controls (``controls``: name → the handler's settings), which
+  ``--control`` takes beside the built-in ones.
+
 Set-up: the box's textures and the start phase along the sweep are drawn from
 ``--seed``; every frame the run feeds is rendered on the device and handed to
 the handler as a host uint8 array; ``run_dataset.make_handler`` builds the
@@ -51,6 +67,7 @@ if ROOT not in sys.path:
     sys.path.insert(0, ROOT)
 
 import argparse  # noqa: E402
+import hashlib  # noqa: E402
 import importlib.util  # noqa: E402
 import json  # noqa: E402
 import math  # noqa: E402
@@ -67,6 +84,12 @@ BA_SOLVES_JUDGED = 4   #: windowed-BA solves of the window the reference solves 
 #: the matcher's subpixel alignment cut to no iteration (tracking is lost),
 #: and the windowed BA cut to no iteration (tracking goes on)
 CONTROLS = {"align_cut": ("align_max_iter", 0), "ba_cut": ("loba_num_iter", 0)}
+#: the compared numbers the harness reads itself; any other is a file of ``vobench/checks``
+BUILTIN_NUMBERS = frozenset({
+    "lost_frames", "ate_rmse_mm", "pos_err_max_mm", "rot_err_max_deg", "scale", "point_n",
+    "point_depth_err_p50", "seed_n", "seed_depth_err_p50", "seed_z_p50", "ba_cost_gap_max"})
+#: handler settings that only its construction applies (``run_dataset.make_handler``)
+AT_CONSTRUCTION = ("photometric_calib",)
 
 
 def process_start() -> float:
@@ -97,13 +120,37 @@ def load_json(*parts) -> dict:
         return json.load(fh)
 
 
-def load_reader(name: str):
-    """The ``read(ctx)`` of ``vobench/metrics/<name>.py``."""
-    path = os.path.join(ROOT, "vobench", "metrics", f"{name}.py")
-    spec = importlib.util.spec_from_file_location(f"vobench_metric_{len(sys.modules)}", path)
+def load_reader(name: str, folder: str = "metrics"):
+    """The ``read(ctx)`` of ``vobench/<folder>/<name>.py``."""
+    path = os.path.join(ROOT, "vobench", folder, f"{name}.py")
+    spec = importlib.util.spec_from_file_location(f"vobench_{folder}_{len(sys.modules)}", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod.read
+
+
+def controls_of(limits: dict) -> dict:
+    """Each control's handler settings: the built-in ones, then the cell's."""
+    out = {name: dict([kv]) for name, kv in CONTROLS.items()}
+    for name, settings in limits.get("controls", {}).items():
+        if name in out or name == "none":
+            raise ValueError(f"the control {name!r} is already defined")
+        out[name] = dict(settings)
+    return out
+
+
+def calibration_text(cal: dict) -> str:
+    """The program's calibration file of a configuration's ``calibration``, as
+    the dataset gives it."""
+    if cal["model"] == "Pinhole":
+        vals = (cal["fx"], cal["fy"], cal["cx"], cal["cy"], *cal["distortion"])
+        rectify = False
+    elif cal["model"] == "FOV":
+        vals, rectify = cal["params"], cal["rectify"]
+    else:
+        raise ValueError(f"no camera model {cal['model']!r}: Pinhole or FOV")
+    return (" ".join([cal["model"]] + [repr(float(x)) for x in vals]) + "\n"
+            + f"{cal['width']} {cal['height']}\n{'true' if rectify else 'false'}\n")
 
 
 def cell_metrics(bench: dict, cell: str, traced: bool) -> list[dict]:
@@ -248,9 +295,10 @@ def main(argv=None) -> int:
     ap.add_argument("--trace", type=int, default=0, choices=(0, 1))
     ap.add_argument("--device", default="cuda",
                     help="cuda (default); cpu rehearses the run and measures nothing")
-    ap.add_argument("--control", default="none", choices=("none", *CONTROLS),
-                    help="run the comparison's control instead of the program as the "
-                         "configuration states it")
+    ap.add_argument("--control", default="none",
+                    help="run the comparison's control (built-in: "
+                         + ", ".join(CONTROLS) + "; or one of the cell's limits file) "
+                         "instead of the program as the configuration states it")
     ap.add_argument("--warm-frames", type=int, default=None,
                     help="rehearsal only: fewer warm frames than the mix states")
     ap.add_argument("--max-fps", type=float, default=None,
@@ -267,6 +315,14 @@ def main(argv=None) -> int:
     traffic = load_json("vobench", "traffic", f"{cell['traffic']}.json")
     limits = load_json("vobench", "limits", f"{cell['name']}.json")
     traced = bool(args.trace)
+    controls = controls_of(limits)
+    if args.control != "none" and args.control not in controls:
+        print(f"vobench: no control {args.control!r}; the cell has {sorted(controls)}",
+              file=sys.stderr)
+        return 2
+    control = controls.get(args.control, {})
+    data_checks = {name: load_reader(name, "checks") for name in limits["compare"]
+                   if name not in BUILTIN_NUMBERS}
 
     os.environ.setdefault("TRITON_CACHE_DIR", os.path.join(CACHE_DIR, "triton"))
     os.environ.setdefault("TORCH_EXTENSIONS_DIR", os.path.join(CACHE_DIR, "torch_extensions"))
@@ -304,14 +360,14 @@ def main(argv=None) -> int:
         # ---- the camera (the program's, from the calibration as a user gives it)
         cal = conf["calibration"]
         calib_path = os.path.join(tmp, "camera.txt")
-        with open(calib_path, "w") as fh:
-            fh.write(" ".join(["Pinhole"] + [repr(float(x)) for x in
-                                             (cal["fx"], cal["fy"], cal["cx"], cal["cy"],
-                                              *cal["distortion"])]) + "\n")
-            fh.write(f"{cal['width']} {cal['height']}\nfalse\n")
+        calib_bytes = calibration_text(cal).encode()
+        with open(calib_path, "wb") as fh:
+            fh.write(calib_bytes)
         cam = parse_calib(calib_path)
-        rcam = scene_mod.Camera(cal["width"], cal["height"], cal["fx"], cal["fy"], cal["cx"],
-                                cal["cy"], cal["distortion"])
+        rcam = scene_mod.camera(cal)
+        if (cam.width, cam.height) != (rcam.width, rcam.height):
+            raise RuntimeError(f"the program's camera is {cam.width}x{cam.height}, the "
+                               f"rendered frames {rcam.width}x{rcam.height}")
         rate = float(traffic["rate_hz"] if traffic.get("rate_hz") else conf["rate_hz"])
 
         # ---- the frames: warm-up, window, and the traced segments after it
@@ -328,23 +384,35 @@ def main(argv=None) -> int:
         motion["amplitude"] = [[max(0, n_warm + f), a] for f, a in
                                motion.get("amplitude_after_warm", [[0, 1.0]])]
         gt = trajectory.poses(n_frames, motion, phase_s, rate)
+        t_render = time.perf_counter()
+        photometry = None
+        if "photometric" in conf:
+            photometry = scene_mod.Photometry(conf["photometric"], rcam, n_frames, rate,
+                                              np.random.default_rng([seed, 2]), device)
         scene = scene_mod.BoxScene(seed=seed, device=device, **conf["scene"])
-        frames = scene.render_frames(rcam, gt)
+        frames = scene.render_frames(rcam, gt, photometry=photometry)
         sync()
         log(f"{args.workload}: seed {args.seed}, phase {phase_s:.4f} s, {n_frames} frames "
-            f"rendered ({cal['width']}x{cal['height']}), rate {rate} Hz")
+            f"rendered ({rcam.width}x{rcam.height}) in {time.perf_counter() - t_render:.3f} s, "
+            f"rate {rate} Hz")
 
         # ---- the handler, warmed from frame 0 through its mix's feed
-        vo, undistort = make_handler(cam, args.device)
+        # a control's settings that only construction applies are built in; the
+        # handler then has to run as the configuration states, with those
+        built = dict(conf["handler"], **{k: v for k, v in control.items() if k in AT_CONSTRUCTION})
+        vo, undistort = make_handler(cam, args.device, photo=built["photometric_calib"])
         if undistort is not None:
             raise RuntimeError("the configuration's camera asks for rectified frames")
-        stated = {k: getattr(vo.cfg, k) for k in conf["handler"]}
-        if stated != conf["handler"]:
+        stated = {k: getattr(vo.cfg, k) for k in built}
+        if stated != built:
             raise RuntimeError(f"the handler does not run as the configuration states: "
-                               f"{stated} against {conf['handler']}")
-        if args.control != "none":
-            key, val = CONTROLS[args.control]
-            setattr(vo.cfg, key, val)
+                               f"{stated} against {built}")
+        for key, val in control.items():
+            if key not in AT_CONSTRUCTION:
+                if not hasattr(vo.cfg, key):
+                    raise ValueError(f"the control {args.control!r} sets {key!r}, which the "
+                                     f"handler has not")
+                setattr(vo.cfg, key, val)
         feed = Feed(vo, frames, traffic, rate)
         feed.run(n=n_warm, paced=False)
         sync()
@@ -405,7 +473,7 @@ def main(argv=None) -> int:
             seg_results = feed.results
             ctx = dict(stages=trace_mod.read_stage_csv(stage_csv),
                        plain=dict(frames=n_plain, seconds=plain_s), profile=prof,
-                       n_features=coarse_features(cal["width"], cal["height"],
+                       n_features=coarse_features(rcam.width, rcam.height,
                                                   conf["handler"]["max_fts"]))
             win_results = win_results + seg_results
 
@@ -444,7 +512,12 @@ def main(argv=None) -> int:
         seeds = dict(frame=kf_frame[host_kf[keep]], f=sd["f"][keep].astype(np.float64),
                      idist=sd["mu"][keep].astype(np.float64),
                      sigma=np.sqrt(sd["sigma2"][keep].astype(np.float64)))
-        del vo, feed
+        check_ctx = dict(handler=vo, config=conf, limits=limits, gt=gt[:len(statuses)],
+                         statuses=statuses, n_warm=n_warm, photometric=photometry)
+        data_numbers = {name: read(check_ctx) for name, read in data_checks.items()}
+        del vo, feed, check_ctx
+        log(f"sha256: frames {hashlib.sha256(frames).hexdigest()} ({len(frames)} frames), "
+            f"calibration {hashlib.sha256(calib_bytes).hexdigest()}")
         if on_card:
             torch.cuda.empty_cache()
         if tracked.sum() < 3 or not timed.any():
@@ -461,6 +534,7 @@ def main(argv=None) -> int:
         tap.kept.clear()
         if gaps:
             numbers["ba_cost_gap_max"] = max(gaps)
+        numbers.update(data_numbers)
 
         checks, correct = {}, bool(numbers) and not forbidden
         for name, lim in limits["compare"].items():
@@ -510,6 +584,7 @@ def main(argv=None) -> int:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
+    forbidden = loaded_forbidden()      # the data checks read after the first look
     if forbidden:
         print(f"vobench: modules of JAX or the JAX package loaded: {forbidden}", file=sys.stderr)
         return 3
